@@ -1,0 +1,76 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+and its entry points run on a CUDA device unless asked for the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.evaluate import Evaluator
+from repro_torch.core.problem import spec_tiny
+from repro_torch.core.traffic import traffic_matrix
+from repro_torch.noc import NocProblem, named_spec, run
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s+import\b))",
+    re.MULTILINE)
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.noc, repro_torch.core, "
+        "repro_torch.convert\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.noc.cli\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                          "PATH": "/usr/bin:/bin"},
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_of_the_port_imports_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        hits = FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path}: {hits}"
+
+
+def test_forbidden_import_pattern():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                 "from repro.core import y", "import repro.noc",
+                 "  from repro import noc"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import y",
+                 "from .routing import x", "# import jax is not done here"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_entry_points_default_to_cuda():
+    spec = spec_tiny()
+    f = traffic_matrix(spec, "BFS")
+    if torch.cuda.is_available():
+        ev = Evaluator(spec, f)
+        assert ev.f.device.type == "cuda"
+        assert ev.consts.vadj.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Evaluator(spec, f)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            NocProblem(spec=named_spec("tiny")).evaluator()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(NocProblem(spec=named_spec("tiny")), "stage")
+    ev_cpu = Evaluator(spec, f, device="cpu")
+    assert ev_cpu.f.device.type == "cpu"
+    assert np.all(np.isfinite(ev_cpu(spec.mesh_design())))
