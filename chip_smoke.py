@@ -20,7 +20,18 @@ each raising on failure:
   6. each kernel timed at its main-path shapes beside its plain version and
      its bound, printed as one JSON ``kernels`` line;
   7. one more main-path run under torch.profiler: device busy time, the
-     device's idle share, the kernels that take the most time.
+     device's idle share, the kernels that take the most time;
+  8. the two LLM kernels (K5 attention, K6 SSD) against their plain
+     versions on the card at the serving path's shapes and at ragged,
+     GQA, windowed and f32 ones, each run twice and bit-identical;
+  9. the serving path: zamba2-2.7b at full width (random weights from a
+     seeded generator) generating 16 tokens for 8 prompts of 512 through
+     ``repro_torch.serve.Engine``, with the launches of K5 and K6 counted
+     over that run alone; its prefill against the same prefill through the
+     plain versions on the card; the smoke-size hybrid on card and CPU;
+ 10. K5 and K6 timed at phase 9's shapes beside their plain versions, their
+     bounds and (K5) PyTorch's own attention call, and one ``generate``
+     under torch.profiler. The ``kernels`` JSON line lists all six kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.
@@ -36,10 +47,27 @@ import sys
 import time
 from pathlib import Path
 
-#: H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores and
-#: HBM3 bandwidth, at the full 700 W power limit.
+#: H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, bf16
+#: dense on the tensor cores, and HBM3 bandwidth, at the full 700 W power
+#: limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+
+#: The kernels of the NoC main path (phase 3) and of the serving path
+#: (phase 9).
+NOC_KERNELS = ("minplus", "forest_predict", "score_block_max", "walk")
+LLM_KERNELS = ("flash_attention", "ssd")
+
+#: Tolerances of the LLM kernels against their plain versions (the
+#: reference's own, tests/test_kernels.py): attention in bf16 / f32, SSD.
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+SSD_TOL = 2e-4
+#: The serving path's prefill, kernels against plain versions on the card:
+#: largest |logit difference| allowed, as a share of the largest |logit|.
+#: Both run the bf16 model; they differ by bf16 roundings of attention and
+#: SSD outputs that 54 layers carry forward.
+PREFILL_REL_TOL = 0.05
 
 
 def phase(name: str) -> None:
@@ -70,16 +98,20 @@ def time_ms(fn, warmup: int = 5, reps: int = 50) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          peak_ops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def trace_main_path(torch, fn, untraced_wall: float) -> None:
-    """Device time of one more main-path run under torch.profiler: the sum
-    of kernel times, the device's idle share of the untraced run's wall
-    time, and the kernels that take most of it."""
+def trace_main_path(torch, fn, untraced_wall: float,
+                    untraced_name: str = "phase 3's run (which includes "
+                                         "first-use set-up)",
+                    label: str = "trace") -> None:
+    """Device time of one more run of ``fn`` under torch.profiler: the sum
+    of kernel times, the device's idle share of the traced run's and of an
+    untraced run's wall time, and the kernels that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -93,16 +125,241 @@ def trace_main_path(torch, fn, untraced_wall: float) -> None:
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if not kern:
-        print("trace: the profiler saw no device time (not measured)")
+        print(f"{label}: the profiler saw no device time (not measured)")
         return
-    print(f"trace: device busy {busy_ms:.3f} ms over {len(kern)} kernel "
+    print(f"{label}: device busy {busy_ms:.3f} ms over {len(kern)} kernel "
           f"names; device idle share {1 - busy_ms / (traced_wall * 1e3):.4f} "
           f"of the traced run's {traced_wall * 1e3:.1f} ms wall, "
-          f"{1 - busy_ms / (untraced_wall * 1e3):.4f} of phase 3's "
-          f"{untraced_wall * 1e3:.1f} ms (which includes first-use set-up)")
+          f"{1 - busy_ms / (untraced_wall * 1e3):.4f} of "
+          f"{untraced_name}: {untraced_wall * 1e3:.1f} ms")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+
+
+# ------------------------------------------------------ LLM slice (8-10)
+#: (B, H, KH, S, D, causal, window, dtype): the serving path's shape first.
+ATTN_CASES = (
+    (8, 32, 32, 512, 80, True, None, "bfloat16"),   # zamba2 prefill
+    (2, 32, 4, 512, 128, True, None, "bfloat16"),   # GQA (yi / mistral)
+    (2, 4, 1, 1024, 256, True, 512, "bfloat16"),    # gemma3 sliding window
+    (2, 8, 2, 333, 80, True, None, "float32"),      # off every tile, f32
+    (1, 4, 4, 200, 32, False, None, "float32"),     # bidirectional, f32
+)
+#: (B, S, H, P, N, chunk): the serving path's shape first.
+SSD_CASES = (
+    (8, 512, 80, 64, 64, 64),   # zamba2 prefill, one mamba layer
+    (2, 300, 8, 64, 128, 64),   # padded tail (mamba2-1.3b's N)
+    (2, 40, 8, 64, 64, 40),     # S < 64: one short chunk
+)
+
+
+def attn_inputs(torch, case, dev, seed=0):
+    b, h, kh, s, d, _, _, dtype = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dt)
+                 for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d)))
+
+
+def ssd_inputs(torch, case, dev, seed=0):
+    b, s, h, p, n, _ = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=dev)) * 0.1
+    a = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)
+    bm = torch.randn((b, s, n), generator=g, device=dev) * 0.5
+    cm = torch.randn((b, s, n), generator=g, device=dev) * 0.5
+    d = torch.full((h,), 0.5, device=dev)
+    return x, dt, a, bm, cm, d
+
+
+def llm_kernels_vs_plain(torch, ops, ref, dev) -> dict[str, float]:
+    """Phase 8: K5 and K6 against their plain versions, two runs each
+    bit-identical. Returns the max |err| of each kernel."""
+    errs = {"flash_attention": 0.0, "ssd": 0.0}
+    for case in ATTN_CASES:
+        b, h, kh, s, d, causal, window, dtype = case
+        q, k, v = attn_inputs(torch, case, dev)
+        out = ops.attention(q, k, v, causal=causal, window=window)
+        out2 = ops.attention(q, k, v, causal=causal, window=window)
+        plain = ref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((out.float() - plain.float()).abs().max())
+        check(out.dtype == q.dtype, f"attention {case}: output {out.dtype}")
+        check(err <= ATTN_TOL[dtype], f"attention {case}: |err| {err} > "
+              f"{ATTN_TOL[dtype]}")
+        check(torch.equal(out, out2), f"attention {case}: two runs differ")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        print(f"K5 attention B={b} H={h} KH={kh} S={s} D={d} causal={causal}"
+              f" window={window} {dtype}: max |err| {err:.3g} (tolerance "
+              f"{ATTN_TOL[dtype]}), two runs bit-identical")
+    for case in SSD_CASES:
+        b, s, h, p, n, chunk = case
+        args = ssd_inputs(torch, case, dev)
+        y, st = ops.ssd(*args, chunk=chunk, return_state=True)
+        y2, st2 = ops.ssd(*args, chunk=chunk, return_state=True)
+        py, pst = ref.ssd_padded_ref(*args, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        err = max(float((y - py).abs().max()), float((st - pst).abs().max()))
+        check(err <= SSD_TOL, f"ssd {case}: |err| {err} > {SSD_TOL}")
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"ssd {case}: two runs differ")
+        errs["ssd"] = max(errs["ssd"], err)
+        print(f"K6 ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk}: max |err|"
+              f" {err:.3g} over y and the final state (tolerance {SSD_TOL}), "
+              f"two runs bit-identical")
+    return errs
+
+
+def serve_full_width(torch, ops, ref, dev) -> dict:
+    """Phase 9: zamba2-2.7b at full width served through the Engine, with
+    K5/K6 launches counted over one generate; its prefill against the plain
+    versions on the card; the smoke config on card and CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config("zamba2-2.7b")
+    batch, prompt_len, new = 8, 512, 16
+    t0 = time.perf_counter()
+    model = build(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in model.buffers())
+    print(f"zamba2-2.7b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters (the config's analytic count: "
+          f"{cfg.param_count()}), built in {time.perf_counter() - t0:.1f} s")
+    engine = Engine(model, ServeConfig(max_new_tokens=new,
+                                       max_len=prompt_len + new))
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(batch, prompt_len)).astype(np.int32)
+
+    ops.reset_launches()
+    out = engine.generate(prompts)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in ops.launches().items() if k in LLM_KERNELS}
+    cold = dict(engine.stats)
+    n_sites = cfg.n_layers // cfg.attn_every
+    check(launches["flash_attention"] == n_sites,
+          f"K5 launched {launches['flash_attention']}x, expected {n_sites}")
+    check(launches["ssd"] == cfg.n_layers,
+          f"K6 launched {launches['ssd']}x, expected {cfg.n_layers}")
+    check(out.shape == (batch, new) and out.dtype == np.int32,
+          f"generate returned {out.shape} {out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of range")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out2 = engine.generate(prompts)
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.array_equal(out, out2), "two generates differ")
+    prefill_ms = st["prefill_s"] * 1e3
+    decode_ms = st["decode_s"] * 1e3 / st["decode_steps"]
+    print(f"generate (warm): wall {wall * 1e3:.1f} ms, prefill {prefill_ms:.1f}"
+          f" ms, decode {decode_ms:.2f} ms per step ({st['decode_steps']} "
+          f"steps of batch {batch}), {out.size / wall:.1f} generated tokens/s, "
+          f"{batch * prompt_len / st['prefill_s']:.0f} prompt tokens/s in "
+          f"prefill; peak memory {peak_gb:.2f} GB; first (cold) generate: "
+          f"prefill {cold['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{cold['decode_s'] * 1e3:.1f} ms")
+    print(f"launches in one generate: {json.dumps(launches)} (prefill: "
+          f"{n_sites} attention sites, {cfg.n_layers} mamba layers; decode "
+          f"runs no kernel, as the reference)")
+    print(f"sample tokens: {out[0].tolist()}")
+
+    # The same prefill through the plain versions on the card: the model's
+    # modules call ops.attention / ops.ssd, pointed here at the plain
+    # versions for this one call.
+    tokens = torch.as_tensor(prompts.astype(np.int64), device=dev)
+    logits, _ = model.prefill(tokens, prompt_len + new)
+    kernels = (ops.attention, ops.ssd)
+    try:
+        ops.attention, ops.ssd = ref.attention_ref, ref.ssd_padded_ref
+        plain, _ = model.prefill(tokens, prompt_len + new)
+    finally:
+        ops.attention, ops.ssd = kernels
+    torch.cuda.synchronize()
+    lg, pl = logits.float(), plain.float()
+    check(bool(torch.isfinite(lg).all()), "non-finite logits")
+    scale = float(pl.abs().max())
+    diff = float((lg - pl).abs().max())
+    agree = float((lg.argmax(-1) == pl.argmax(-1)).float().mean())
+    check(diff <= PREFILL_REL_TOL * scale,
+          f"prefill logits: max |diff| {diff} > {PREFILL_REL_TOL} x {scale}")
+    print(f"prefill against the plain versions on the card: max |logit diff| "
+          f"{diff:.4g} = {diff / scale:.4g} of the logits' scale {scale:.4g} "
+          f"(tolerance {PREFILL_REL_TOL}); next-token argmax agrees on "
+          f"{agree:.3f} of the batch")
+
+    smoke = get_config("zamba2-2.7b", smoke=True).scaled(
+        compute_dtype=torch.float32)
+    on_card = build(smoke, seed=1, device=dev)
+    on_cpu = build(smoke, _to_cpu(on_card.params), device="cpu")
+    sp = np.random.default_rng(1).integers(1, smoke.vocab, size=(4, 100)
+                                           ).astype(np.int32)
+    scfg = ServeConfig(max_new_tokens=8, max_len=128)
+    a = Engine(on_card, scfg).generate(sp)
+    b = Engine(on_cpu, scfg).generate(sp)
+    check(np.array_equal(a, b), "smoke zamba2: card and CPU tokens differ")
+    print("smoke zamba2 (f32, S=100: a padded SSD tail): card and CPU "
+          "generate identical tokens")
+    return {"engine": engine, "prompts": prompts, "launches": launches,
+            "wall": wall, "prefill_s": st["prefill_s"]}
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
+    """Phase 10: K5 and K6 at phase 9's shapes: kernel, plain version and
+    bound; PyTorch's own attention call for K5 as a yardstick."""
+    rows = []
+    case = ATTN_CASES[0]
+    b, h, kh, s, d, causal, _, _ = case
+    q, k, v = attn_inputs(torch, case, dev)
+    ms = time_ms(lambda: ops.attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    pairs = b * h * s * (s + 1) // 2           # (q, k) pairs under the mask
+    n_bytes = 2 * (2 * b * h * s * d + 2 * b * kh * s * d)
+    rows.append(("flash_attention", ms, plain_ms, lib_ms,
+                 *bound(n_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)))
+
+    case = SSD_CASES[0]
+    b, s, h, p, n, chunk = case
+    args = ssd_inputs(torch, case, dev)
+    ms = time_ms(lambda: ops.ssd(*args, chunk=chunk, return_state=True))
+    plain_ms = time_ms(lambda: ref.ssd_padded_ref(*args, chunk=chunk,
+                                                  return_state=True))
+    tri = chunk * (chunk + 1) // 2              # causal (i, j) pairs per chunk
+    per_chunk = 2 * tri * (n + p) + 4 * chunk * n * p
+    n_ops = b * h * (s // chunk) * per_chunk
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + 2 * h
+                   + b * h * n * p)
+    rows.append(("ssd", ms, plain_ms, None, *bound(n_bytes, n_ops)))
+
+    out = []
+    for name, ms, plain_ms, lib_ms, bound_ms, bound_by in rows:
+        kern = ops.KERNELS[name]
+        out.append({
+            "name": name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+        lib = (f"scaled_dot_product_attention {lib_ms:.4f} ms"
+               if lib_ms is not None else "no PyTorch call computes it")
+        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms by {bound_by}; {lib})")
+    return out
 
 
 def random_graphs(torch, rng, bsz: int, n: int, p_edge: float, dev):
@@ -299,7 +556,8 @@ def main() -> int:
               config=main_cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    main_launches = ops.launches()
+    main_launches = {k: n for k, n in ops.launches().items()
+                     if k in NOC_KERNELS}
     for name, n in main_launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
     phv = res.phv()
@@ -405,6 +663,29 @@ def main() -> int:
     trace_main_path(torch, lambda: run(
         problem, "stage", budget=Budget(max_evals=2000, seed=0),
         config=main_cfg, device="cuda"), wall)
+
+    # ------------------------------------------------------------- phase 8
+    phase("8 K5 and K6 against their plain versions")
+    errs.update(llm_kernels_vs_plain(torch, ops, ref, dev))
+
+    # ------------------------------------------------------------- phase 9
+    phase("9 serving: zamba2-2.7b at full width")
+    served = serve_full_width(torch, ops, ref, dev)
+
+    # ------------------------------------------------------------ phase 10
+    phase("10 K5 and K6 timing, trace of one generate")
+    print(f"card: {card}")
+    kernels += time_llm_kernels(torch, ops, ref, dev, served["launches"],
+                                errs)
+    engine = served["engine"]
+    tokens = torch.as_tensor(served["prompts"].astype("int64"), device=dev)
+    max_len = tokens.shape[1] + engine.cfg.max_new_tokens
+    trace_main_path(torch, lambda: engine.model.prefill(tokens, max_len),
+                    served["prefill_s"], "phase 9's warm prefill",
+                    "trace of one prefill")
+    trace_main_path(torch, lambda: engine.generate(served["prompts"]),
+                    served["wall"], "phase 9's warm generate",
+                    "trace of one generate")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

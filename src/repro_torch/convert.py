@@ -9,14 +9,20 @@ nothing of it:
     same values (:func:`forest_from_flat`);
   * ``Design`` and ``RunResult`` need no conversion: both packages write the
     same JSON (``design_to_json`` / ``RunResult.to_json``) and read each
-    other's with their own ``from_json``.
+    other's with their own ``from_json``;
+  * a reference model's parameter pytree, as nested dicts of numpy arrays
+    with stacked ``(L, ...)`` layer leaves, becomes the port's parameter
+    tree for :func:`repro_torch.models.build` (:func:`params_from_jax`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from .core.forest import RegressionForest
+from .models.common import ModelConfig
 
 _FLAT_KEYS = ("feature", "threshold", "left", "right", "value", "depth")
 
@@ -43,3 +49,28 @@ def forest_from_flat(flat: dict, xm: np.ndarray, xs: np.ndarray, *,
     forest._xm = np.asarray(xm, np.float64)
     forest._xs = np.asarray(xs, np.float64)
     return forest
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
+    """The port's parameter tree from a reference model's, leaf for leaf
+    (the two share the layout). Leaves become CPU tensors of the same dtype;
+    ``build(cfg, params, device=...)`` moves them."""
+    expected = {"embed", "final_norm", "layers"}
+    if not cfg.tie_embeddings:
+        expected.add("head")
+    if cfg.family == "hybrid":
+        expected.add("shared")
+    if set(tree) != expected:
+        raise ValueError(f"{cfg.name}: expected top-level keys "
+                         f"{sorted(expected)}, got {sorted(tree)}")
+
+    def conv(node, path):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}.{k}") for k, v in node.items()}
+        arr = np.asarray(node)
+        if path.startswith("layers.") and arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"{path}: expected {cfg.n_layers} stacked "
+                             f"layers, got shape {arr.shape}")
+        return torch.from_numpy(np.array(arr, copy=True))
+
+    return {k: conv(v, k) for k, v in tree.items()}

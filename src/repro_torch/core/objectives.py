@@ -125,34 +125,135 @@ def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                                             device=x.device)).sum(dim=(1, 2))
 
 
-def evaluate_with_tables(c: SpecConsts, perm: torch.Tensor, adj: torch.Tensor,
-                         f: torch.Tensor, dist: torch.Tensor,
-                         nh: torch.Tensor):
-    """Objectives of B designs given their routing tables (Eqs. 1-10).
+# ------------------------------------------------- the reference's order
+# On the CPU the objective rows are bit-equal to the reference's: the walk
+# accumulates util and visits in the order of its scatter-adds (hop step,
+# then (src, dst) row-major), and every sum runs in XLA:CPU's order, which
+# reduces a dimension of at most 32 strictly left to right and a longer one
+# in windows of 32 (the dimension padded evenly on both sides to a multiple
+# of 32), each window left to right, then the windows left to right. The
+# card runs K4 and PyTorch's reductions; its rows agree to rounding.
+_XLA_WINDOW = 32
 
-    perm (B, N) int64 slot -> core id, adj (B, N, N) bool planar links,
-    f (Ncores, Ncores) f32 traffic between cores, dist (B, N, N) f32,
-    nh (B, N, N) int32. Returns ((B, 5) f32 objectives, INF rows for
-    invalid designs; {"connected": (B,) bool, "net_lat": (B,) f32})."""
-    bsz, n = perm.shape
-    full_adj = adj | c.vadj
-    # Traffic between SLOTS under this placement.
-    f_slots = f[perm[:, :, None], perm[:, None, :]] * (~c.eye).float()
 
-    # ---- routing ---------------------------------------------------- Eq. 1
-    hops, delay, util_d, visits, all_done = routing.walk_paths(
-        nh, c.link_delay, f_slots.contiguous(), c.max_hops)
-    connected = (dist < routing.INF / 2).all(dim=2).all(dim=1) & all_done
+def _seq_sum(x: np.ndarray) -> np.ndarray:
+    """f32 sum over the last axis, left to right from +0."""
+    z = np.zeros(x.shape[:-1] + (1,), np.float32)
+    return np.add.accumulate(np.concatenate([z, x], axis=-1), axis=-1,
+                             dtype=np.float32)[..., -1]
 
-    # ---- Eq. 1: CPU<->LLC latency ------------------------------------------
-    slot_type = c.core_types[perm]                       # (B, N)
-    is_cpu = slot_type == 0
-    is_llc = slot_type == 1
-    pair_cpu_llc = ((is_cpu[:, :, None] & is_llc[:, None, :])
-                    | (is_llc[:, :, None] & is_cpu[:, None, :]))
-    path_lat = (c.router_stages * hops).float() + delay
+
+def _xla_sum(x: np.ndarray, nd: int) -> np.ndarray:
+    """f32 sum over the last ``nd`` (1 or 2) axes in XLA:CPU's order."""
+    lead, red = x.shape[:-nd], x.shape[-nd:]
+    w = _XLA_WINDOW
+    if all(n <= w for n in red):
+        return _seq_sum(x.reshape(lead + (-1,)))
+    pads = [(0, 0)] * len(lead)
+    for n in red:
+        tot = -n % w if n > w else 0
+        pads.append((tot // 2, tot - tot // 2))
+    x = np.pad(x, pads)
+    win = [w if n > w else n for n in red]
+    grid = [x.shape[len(lead) + d] // win[d] for d in range(nd)]
+    split = lead + tuple(v for g, k in zip(grid, win) for v in (g, k))
+    x = x.reshape(split)
+    k = len(lead)
+    if nd == 2:                      # (.., g0, w0, g1, w1) -> (.., g0, g1, w)
+        x = x.transpose(*range(k), k, k + 2, k + 1, k + 3)
+    parts = _seq_sum(x.reshape(lead + tuple(grid) + (-1,)))
+    return _seq_sum(parts.reshape(lead + (-1,)))
+
+
+def _walk_host_order(nh: torch.Tensor, delay: torch.Tensor, f: torch.Tensor,
+                     max_hops: int):
+    """The reference's walk (``repro.core.routing.walk_paths``) batched on
+    the CPU, its scatter-adds in their order: index_add_ on a 1-D view adds
+    in index order, (b, src, dst) row-major within each hop step."""
+    bsz, n, _ = nh.shape
+    nhl = nh.long()
+    ar = torch.arange(n)
+    dst = ar[None, None, :].expand(bsz, n, n)
+    cur = ar[None, :, None].expand(bsz, n, n).clone()
+    bidx = torch.arange(bsz)[:, None, None]
+    hops = torch.zeros((bsz, n, n), dtype=torch.int32)
+    dsum = torch.zeros((bsz, n, n), dtype=torch.float32)
+    util = torch.zeros(bsz * n * n, dtype=torch.float32)
+    visits = torch.zeros(bsz * n, dtype=torch.float32)
+    zero = torch.zeros((), dtype=torch.float32)
+    for _ in range(max_hops):
+        done = cur == dst
+        nxt = nhl[bidx, cur, dst]
+        w = torch.where(done, zero, f).reshape(-1)
+        util.index_add_(0, ((bidx * n + cur) * n + nxt).reshape(-1), w)
+        visits.index_add_(0, (bidx * n + cur).reshape(-1), w)
+        dsum = dsum + torch.where(done, zero, delay[cur, nxt])
+        hops += (~done).to(torch.int32)
+        cur = torch.where(done, cur, nxt)
+    all_done = (cur == dst).all(dim=2).all(dim=1)
+    col = _xla_sum(f.numpy().transpose(0, 2, 1), 1)   # f.sum(axis=0)
+    visits = visits.view(bsz, n) + torch.from_numpy(col)
+    return hops, dsum, util.view(bsz, n, n), visits, all_done
+
+
+def _tail_host_order(c: SpecConsts, full_adj, adj, f_slots, hops, delay,
+                     util_d, visits, pair_cpu_llc, power_slot):
+    """umean, ustd, lat, energy, temp and net_lat in the reference's
+    operation and reduction order, in numpy f32."""
+    f32 = np.float32
+    full_adj, adj = full_adj.numpy(), adj.numpy()
+    f_slots, util_d, visits = f_slots.numpy(), util_d.numpy(), visits.numpy()
+    vadj, upper = c.vadj.numpy(), c.upper.numpy()
+    zero = f32(0.0)
+
+    path_lat = (c.router_stages * hops.numpy()).astype(f32) + delay.numpy()
     lat_terms = path_lat * f_slots
-    lat = _masked_sum(lat_terms, pair_cpu_llc) / (c.n_cpu * c.n_llc)
+    lat = _xla_sum(np.where(pair_cpu_llc.numpy(), lat_terms, zero), 2) / f32(
+        c.n_cpu * c.n_llc)
+
+    util_u = util_d + util_d.transpose(0, 2, 1)
+    link_mask = full_adj & upper
+    umean = _xla_sum(np.where(link_mask, util_u, zero), 2) / f32(c.n_links)
+    dev2 = (util_u - umean[:, None, None]) * (util_u - umean[:, None, None])
+    uvar = _xla_sum(np.where(link_mask, dev2, zero), 2) / f32(c.n_links)
+    ustd = np.sqrt(uvar + f32(1e-12))
+
+    degree = (full_adj.sum(axis=2) + 1).astype(f32)
+    e_router = f32(E_ROUTER_PORT) * _xla_sum(visits * degree, 1)
+    planar = adj & ~vadj
+    e_planar = f32(E_PLANAR_MM) * _xla_sum(
+        np.where(planar, util_u * c.manhattan.numpy(), zero), 2) / f32(2.0)
+    e_vert = f32(E_VERTICAL) * _xla_sum(
+        np.where(vadj, util_u, zero), 2) / f32(2.0)
+    energy = e_router + e_planar + e_vert
+
+    bsz = f_slots.shape[0]
+    p_stack = np.zeros((bsz, c.n_columns, c.n_layers), f32)
+    p_stack[:, c.column.numpy(), c.layer.numpy()] = power_slot.numpy()
+    i_idx = np.arange(1, c.n_layers + 1, dtype=f32)
+    weighted = p_stack * (i_idx * f32(R_LAYER) + f32(R_BASE))[None, None, :]
+    t_nk = np.empty_like(weighted)
+    run = np.zeros(weighted.shape[:2], f32)
+    for k in range(c.n_layers):                          # Eq. 5, in order
+        run = run + weighted[:, :, k]
+        t_nk[:, :, k] = run
+    dT_k = t_nk.max(axis=1) - t_nk.min(axis=1)           # Eq. 6
+    temp = t_nk.max(axis=(1, 2)) * dT_k.max(axis=1)      # Eq. 7
+
+    total_f = _xla_sum(f_slots, 2) + f32(1e-12)
+    net_lat = _xla_sum(path_lat * f_slots, 2) / total_f
+    objs = np.stack([umean, ustd, lat, energy, temp], axis=1)
+    return torch.from_numpy(objs), torch.from_numpy(net_lat)
+
+
+def _tail_device(c: SpecConsts, full_adj, adj, f_slots, hops, delay,
+                 util_d, visits, pair_cpu_llc, power_slot):
+    """umean, ustd, lat, energy, temp and net_lat with PyTorch's
+    reductions (Eqs. 1-10)."""
+    bsz, n, _ = f_slots.shape
+    # ---- Eq. 1: CPU<->LLC latency ------------------------------------------
+    path_lat = (c.router_stages * hops).float() + delay
+    lat = _masked_sum(path_lat * f_slots, pair_cpu_llc) / (c.n_cpu * c.n_llc)
 
     # ---- Eqs. 2-4: link-utilization mean / std -----------------------------
     util_u = util_d + util_d.transpose(1, 2)
@@ -173,24 +274,58 @@ def evaluate_with_tables(c: SpecConsts, perm: torch.Tensor, adj: torch.Tensor,
     # ---- Eqs. 5-7: thermal --------------------------------------------------
     # Slots map to (column, layer) one to one: an index assignment, no
     # accumulating scatter.
-    power_slot = c.core_power[perm]                      # (B, N)
     p_stack = torch.zeros((bsz, c.n_columns, c.n_layers), dtype=torch.float32,
-                          device=perm.device)
+                          device=f_slots.device)
     p_stack[:, c.column, c.layer] = power_slot
     i_idx = torch.arange(1, c.n_layers + 1, dtype=torch.float32,
-                         device=perm.device)
+                         device=f_slots.device)
     weighted = p_stack * (i_idx * R_LAYER + R_BASE)[None, None, :]
     t_nk = torch.cumsum(weighted, dim=2)                 # Eq. 5 (T_{n,k})
     dT_k = t_nk.amax(dim=1) - t_nk.amin(dim=1)           # Eq. 6
     temp = t_nk.amax(dim=(1, 2)) * dT_k.amax(dim=1)      # Eq. 7
-
     objs = torch.stack([umean, ustd, lat, energy, temp], dim=1)
-    objs = torch.where(connected[:, None], objs,
-                       torch.tensor(routing.INF, device=objs.device))
 
     # Network-wide average packet latency (all pairs, f-weighted) — the
     # paper's network-EDP metric (§6.1), not a search objective.
     total_f = f_slots.sum(dim=(1, 2)) + 1e-12
     net_lat = (path_lat * f_slots).sum(dim=(1, 2)) / total_f
+    return objs, net_lat
+
+
+def evaluate_with_tables(c: SpecConsts, perm: torch.Tensor, adj: torch.Tensor,
+                         f: torch.Tensor, dist: torch.Tensor,
+                         nh: torch.Tensor):
+    """Objectives of B designs given their routing tables (Eqs. 1-10).
+
+    perm (B, N) int64 slot -> core id, adj (B, N, N) bool planar links,
+    f (Ncores, Ncores) f32 traffic between cores, dist (B, N, N) f32,
+    nh (B, N, N) int32. Returns ((B, 5) f32 objectives, INF rows for
+    invalid designs; {"connected": (B,) bool, "net_lat": (B,) f32})."""
+    full_adj = adj | c.vadj
+    host = perm.device.type == "cpu"
+    # Traffic between SLOTS under this placement.
+    f_slots = f[perm[:, :, None], perm[:, None, :]] * (~c.eye).float()
+
+    # ---- routing ---------------------------------------------------- Eq. 1
+    walk = _walk_host_order if host else routing.walk_paths
+    hops, delay, util_d, visits, all_done = walk(
+        nh, c.link_delay, f_slots.contiguous(), c.max_hops)
+    connected = (dist < routing.INF / 2).all(dim=2).all(dim=1) & all_done
+
+    slot_type = c.core_types[perm]                       # (B, N)
+    is_cpu = slot_type == 0
+    is_llc = slot_type == 1
+    pair_cpu_llc = ((is_cpu[:, :, None] & is_llc[:, None, :])
+                    | (is_llc[:, :, None] & is_cpu[:, None, :]))
+    power_slot = c.core_power[perm]                      # (B, N)
+    if host:
+        objs, net_lat = _tail_host_order(c, full_adj, adj, f_slots, hops,
+                                         delay, util_d, visits, pair_cpu_llc,
+                                         power_slot)
+    else:
+        objs, net_lat = _tail_device(c, full_adj, adj, f_slots, hops, delay,
+                                     util_d, visits, pair_cpu_llc, power_slot)
+    objs = torch.where(connected[:, None], objs,
+                       torch.tensor(routing.INF, device=objs.device))
     return objs, {"connected": connected, "net_lat": net_lat}
 

@@ -18,6 +18,8 @@ from . import build, ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 @dataclasses.dataclass
@@ -40,6 +42,10 @@ KERNELS = {k.name: k for k in (
            "src/repro/kernels/stage_fused.py:77"),
     Kernel("walk", "src/repro_torch/csrc/walk.cu",
            "src/repro/kernels/link_util.py:81"),
+    Kernel("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:82"),
+    Kernel("ssd", "src/repro_torch/csrc/ssd.cu",
+           "src/repro/kernels/ssd.py:76"),
 )}
 
 _SIGS = {
@@ -48,6 +54,10 @@ _SIGS = {
     "score_block_max_launch": ("forest", [_P] * 7 + [_I] * 6 + [_P] * 5),
     "forest_blocks": ("forest", [_I]),
     "walk_launch": ("walk", [_P] * 3 + [_I] * 3 + [_P] * 6),
+    "flash_attention_launch": ("flash_attention",
+                               [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F]
+                               + [_I] * 2 + [_P]),
+    "ssd_launch": ("ssd", [_P] * 8 + [_I] * 6 + [_P]),
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -226,3 +236,93 @@ def walk(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
                 dsum.data_ptr(), util.data_ptr(), visits.data_ptr(),
                 done.data_ptr())
     return hops, dsum, util, visits, done
+
+
+# ------------------------------------------------------------------- K5
+#: Largest head dimension the attention kernel takes (8 columns per lane).
+ATTN_MAX_HEAD_DIM = 256
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """GQA attention forward (K5): q (B, H, Sq, D), k/v (B, KH, Sk, D), bf16
+    or f32, any strides with a contiguous last dimension. Returns
+    (B, H, Sq, D) in q's dtype. ``window`` None means no window."""
+    if not _on_cuda(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    b, h, sq, d = q.shape
+    _, kh, sk, _ = k.shape
+    if d > ATTN_MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head_dim <= "
+                         f"{ATTN_MAX_HEAD_DIM}, got {d}")
+    if q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"attention kernel takes f32 or bf16, got {q.dtype}")
+    if kh < 1 or h % kh:
+        raise ValueError(f"q heads {h} must be a multiple of kv heads {kh}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    for name, t, shape in (("k", k, (b, kh, sk, d)), ("v", v, (b, kh, sk, d))):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: expected {q.dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: last dimension must be contiguous")
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    if out.numel():
+        _launch("flash_attention", "flash_attention_launch", q.device,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _ATTN_DTYPES[q.dtype], b, h, kh, sq, sk, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                d ** -0.5, int(causal), window or 0)
+    return out
+
+
+# ------------------------------------------------------------------- K6
+#: Largest chunk and head dim (P), and state size (N), the SSD kernel takes.
+SSD_MAX_CHUNK = 64
+SSD_MAX_P = 64
+SSD_MAX_N = 128
+
+
+def ssd(x, dt, a, b, c, d, *, chunk: int = 64, return_state: bool = False):
+    """Mamba-2 SSD chunked scan (K6): x (B,S,H,P), dt (B,S,H), a (H,), b/c
+    (B,S,N), d (H,), all f32. Returns y (B,S,H,P), plus the final state
+    (B,H,N,P) with ``return_state``.
+
+    On the CPU this keeps the reference's choice: the chunked form when S is
+    a multiple of ``chunk`` above it, else the sequential scan. The kernel
+    takes any S: a ragged tail runs as a chunk padded with zero rows, which
+    leave the state unchanged (plain version: ``ref.ssd_padded_ref``)."""
+    if not _on_cuda(x, dt, a, b, c, d):
+        s = x.shape[1]
+        if s % chunk == 0 and s > chunk:
+            return ref.ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk,
+                                       return_state=return_state)
+        return ref.ssd_ref(x, dt, a, b, c, d, return_state=return_state)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if not 1 <= chunk <= SSD_MAX_CHUNK:
+        raise ValueError(f"ssd kernel takes 1 <= chunk <= {SSD_MAX_CHUNK}, "
+                         f"got {chunk}")
+    if p > SSD_MAX_P or n > SSD_MAX_N:
+        raise ValueError(f"ssd kernel takes P <= {SSD_MAX_P} and N <= "
+                         f"{SSD_MAX_N}, got P={p}, N={n}")
+    _check(x, "x", torch.float32, (bsz, s, h, p))
+    _check(dt, "dt", torch.float32, (bsz, s, h))
+    _check(a, "a", torch.float32, (h,))
+    _check(b, "b", torch.float32, (bsz, s, n))
+    _check(c, "c", torch.float32, (bsz, s, n))
+    _check(d, "d", torch.float32, (h,))
+    y = torch.empty_like(x)
+    state = (torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
+             if return_state else None)
+    if bsz and h:
+        _launch("ssd", "ssd_launch", x.device, x.data_ptr(), dt.data_ptr(),
+                a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                y.data_ptr(), state.data_ptr() if return_state else None,
+                bsz, s, h, p, n, chunk)
+    return (y, state) if return_state else y

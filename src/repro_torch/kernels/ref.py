@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels.
+"""Plain PyTorch versions of the six CUDA kernels.
 
 The kernel wrappers in :mod:`repro_torch.kernels.ops` run these for tensors
 on the CPU; ``chip_smoke.py`` calls them directly on CUDA tensors to hold
@@ -134,3 +134,116 @@ def walk_ref(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
         col = col + f[:, s, :]
     visits = vis.view(bsz, n) + col
     return hops, dsum, util.view(bsz, n, n), visits, all_done
+
+
+# ------------------------------------------------------------------- K5
+NEG_INF = -1.0e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None
+                  ) -> torch.Tensor:
+    """GQA attention: q (B, H, Sq, D), k/v (B, KH, Sk, D) -> (B, H, Sq, D)
+    in q's dtype. Logits and softmax in f32, scale D^-0.5; masked logits
+    are -1e30 and their probabilities 0, so a row with no valid key is 0.
+    q head h reads kv head h // (H // KH), folded by a reshape (repeated KV
+    is never built)."""
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kh, h // kh, sq, d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (d ** -0.5)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask, p, torch.zeros((), device=q.device))
+    y = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return y.reshape(b, h, sq, d).to(q.dtype)
+
+
+# ------------------------------------------------------------------- K6
+def ssd_ref(x, dt, a, b, c, d, return_state: bool = False):
+    """Sequential SSD recurrence, the ground truth: x (B,S,H,P), dt (B,S,H),
+    a (H,), b/c (B,S,N), d (H,). Returns y (B,S,H,P) in x's dtype, plus the
+    final state (B,H,N,P) f32 with ``return_state``."""
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a[None, :])               # (B,H)
+        upd = torch.einsum("bn,bhp->bhnp", bf[:, t],
+                           xf[:, t] * dtf[:, t, :, None])
+        state = decay[..., None, None] * state + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], state))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(xf)
+    y = (y + d[None, None, :, None] * xf).to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def ssd_chunked_ref(x, dt, a, b, c, d, *, chunk: int = 64,
+                    return_state: bool = False):
+    """Chunk-parallel SSD (the kernel's math, S a multiple of ``chunk``):
+    the intra-chunk dual form plus the chunk states carried in order. Every
+    exponent it takes is <= 0."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // chunk
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    bf = b.float().reshape(bsz, nc, chunk, n)
+    cf = c.float().reshape(bsz, nc, chunk, n)
+
+    sc = torch.cumsum(dtf * a[None, None, None, :], dim=2)   # (B,C,Q,H)
+    tril = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()
+    g = torch.einsum("bcqn,bckn->bcqk", cf, bf)
+    # The mask goes in before the exponential: above the diagonal
+    # s_i - s_j > 0 and exp overflows once a chunk's decay passes e^88,
+    # where masking after it (the reference's order) gives inf * 0 = NaN.
+    seg = torch.where(tril[None, None, :, :, None],
+                      sc[:, :, :, None, :] - sc[:, :, None, :, :],
+                      torch.tensor(float("-inf"), device=x.device))
+    w = (g[..., None] * torch.exp(seg)
+         * dtf[:, :, None, :, :])                             # (B,C,Q,K,H)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", w, xf)
+
+    to_end = torch.exp(sc[:, :, -1:, :] - sc) * dtf           # (B,C,Q,H)
+    chunk_state = torch.einsum("bcqn,bcqhp->bchnp", bf,
+                               xf * to_end[..., None])
+    chunk_decay = torch.exp(sc[:, :, -1, :])                  # (B,C,H)
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    befores = []
+    for ci in range(nc):
+        befores.append(state)
+        state = chunk_decay[:, ci, :, None, None] * state + chunk_state[:, ci]
+    h_before = torch.stack(befores, dim=1)                    # (B,C,H,N,P)
+    cexp = cf[:, :, :, None, :] * torch.exp(sc)[..., None]    # (B,C,Q,H,N)
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", cexp, h_before)
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    y = (y + d[None, None, :, None] * x.float()).to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def ssd_padded_ref(x, dt, a, b, c, d, *, chunk: int = 64,
+                   return_state: bool = False):
+    """Plain version of the CUDA kernel: S padded up to a multiple of
+    ``chunk`` with zero rows (dt = x = B = C = 0, which decay by exp(0) = 1
+    and add 0, so the final state is unchanged), the chunked form, then the
+    padded rows of y dropped."""
+    s = x.shape[1]
+    pad = -s % chunk
+    if pad:
+        x, dt, b, c = (torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, b, c))
+    out = ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk,
+                          return_state=return_state)
+    if return_state:
+        return out[0][:, :s], out[1]
+    return out[:, :s]

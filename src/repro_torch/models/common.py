@@ -1,0 +1,132 @@
+"""Shared model substrate: the config, initialization, norms and RoPE.
+
+The reference's models are functional JAX over parameter pytrees; the
+port keeps the same nested-dict layout (stacked ``(L, ...)`` layer leaves)
+so one tree converts into the other leaf for leaf. One card holds the whole
+model, so there is no sharding hook; layers run in a Python loop under
+``torch.inference_mode``, so the reference's ``remat`` and
+``unroll_layers`` have no counterpart."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One config describes every assigned architecture (configs/<id>.py)."""
+
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    # Attention pattern.
+    sliding_window: int = 0        # 0 -> full attention
+    global_every: int = 0          # gemma3: layer l is global iff (l+1) % global_every == 0
+    # MoE.
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # SSM (Mamba-2 / SSD).
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    conv_width: int = 4
+    # Hybrid (zamba2-style): one SHARED attention block every attn_every layers.
+    attn_every: int = 0
+    # Encoder-decoder (whisper-style).
+    encoder_layers: int = 0
+    # Frontend stubs ([audio]/[vlm] — the task specifies backbone-only).
+    frontend: str = ""             # "" | "audio_stub" | "vq_stub"
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: Any = torch.float32     # parameter dtype
+    compute_dtype: Any = torch.bfloat16
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def scaled(self, **overrides) -> "ModelConfig":
+        return dataclasses.replace(self, **overrides)
+
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        d, v = self.d_model, self.vocab
+        hd = self.resolved_head_dim
+        total = v * d + d * v + d  # embed + head + final norm
+
+        def attn_params():
+            return d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads + \
+                hd * self.n_heads * d + 2 * d
+
+        def mlp_params(ff):
+            return 3 * d * ff
+        if self.family in ("dense", "vlm"):
+            total += self.n_layers * (attn_params() + mlp_params(self.d_ff)
+                                      + 2 * d)
+        elif self.family == "moe":
+            per = attn_params() + 2 * d + d * self.n_experts \
+                + self.n_experts * 3 * d * self.moe_d_ff
+            total += self.n_layers * per
+        elif self.family == "ssm":
+            total += self.n_layers * (self._mamba_params() + d)
+        elif self.family == "hybrid":
+            total += self.n_layers * (self._mamba_params() + d)
+            total += attn_params() + mlp_params(self.d_ff) + 2 * d
+        elif self.family == "encdec":
+            total += self.encoder_layers * (attn_params()
+                                            + mlp_params(self.d_ff) + 2 * d)
+            total += self.n_layers * (2 * attn_params()
+                                      + mlp_params(self.d_ff) + 3 * d)
+        return int(total)
+
+    def _mamba_params(self) -> int:
+        h, p, n = self.ssm_heads, self.ssm_head_dim, self.ssm_state
+        d_in = h * p
+        d = self.d_model
+        # in_proj -> (z, x, B, C, dt) ; out_proj ; conv over (x,B,C) ; A, D, norm
+        return d * (2 * d_in + 2 * n + h) + d_in * d + \
+            self.conv_width * (d_in + 2 * n) + 2 * h + d_in
+
+
+# ------------------------------------------------------------------- layers
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32 with the ``(1 + scale)`` gain, back in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding on concatenated halves: x (..., S, H, D),
+    positions (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs        # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_dense(gen: torch.Generator, shape, scale_axis: int = 0,
+               dtype=torch.float32) -> torch.Tensor:
+    """Normal(0, 1/fan_in) weights drawn from ``gen`` on its device."""
+    fan_in = shape[scale_axis]
+    w = torch.randn(shape, generator=gen, device=gen.device)
+    return (w * (fan_in ** -0.5)).to(dtype)

@@ -1,0 +1,88 @@
+"""Unified model interface: ``build(cfg) -> Model``, an ``nn.Module`` that
+holds the parameters on one explicit device and serves ``prefill`` /
+``decode_step`` / ``init_cache``."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import transformer
+from .common import ModelConfig
+
+#: Leaves the reference casts to the compute dtype at every use (matmul
+#: weights, the conv, the embedding). The model casts them once: the same
+#: values, without a cast per call.
+_CAST = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3", "in_proj",
+                   "out_proj", "conv_w", "conv_b", "embed", "head"})
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", k, v
+
+
+def _map(tree: dict, fn) -> dict:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(k, v)
+            for k, v in tree.items()}
+
+
+class Model(nn.Module):
+    """A decoder-only LM of the dense / VLM / SSM / hybrid families.
+
+    ``params`` is the reference's tree (stacked layer leaves) in the
+    parameter dtype; the leaves the reference casts to the compute dtype are
+    kept cast once, in ``run_params``. Every method runs under
+    ``torch.inference_mode``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, device):
+        super().__init__()
+        transformer.check_family(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.params = _map(params, lambda k, v: v.to(self.device))
+        for path, _, v in _leaves(self.params):
+            self.register_buffer(path.replace(".", "__"), v, persistent=True)
+        cd = cfg.compute_dtype
+        self.run_params = _map(
+            self.params, lambda k, v: v.to(cd) if k in _CAST else v)
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, max_len: int):
+        """tokens (B, S) -> (last-position logits (B, 1, V), cache)."""
+        return transformer.prefill(self.cfg, self.run_params,
+                                   tokens.to(self.device), max_len)
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1) -> (logits (B, 1, V), cache updated in place)."""
+        return transformer.decode_step(self.cfg, self.run_params, cache,
+                                       tokens.to(self.device))
+
+    @torch.inference_mode()
+    def forward_full(self, tokens: torch.Tensor):
+        """Hidden states (B, S, D) of a full-sequence pass."""
+        return transformer.forward_full(self.cfg, self.run_params,
+                                        tokens.to(self.device))[0]
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        return transformer.init_cache(self.cfg, batch, max_len, dtype,
+                                      device=self.device)
+
+
+def build(cfg: ModelConfig, params: dict | None = None, *, seed: int = 0,
+          device=None) -> Model:
+    """The model of ``cfg`` on ``device`` (a CUDA device unless the caller
+    asks for the CPU). Without ``params`` the weights are drawn from a
+    ``torch.Generator`` seeded with ``seed`` on that device."""
+    transformer.check_family(cfg)
+    dev = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.inference_mode():
+            params = transformer.init_params(cfg, gen)
+    return Model(cfg, params, dev)

@@ -1,0 +1,264 @@
+"""Decoder-only LM assembly for the dense / VLM / SSM / hybrid families.
+
+Parameters keep the reference's layout: stacked ``(L, ...)`` layer leaves,
+indexed per layer by a plain Python loop (a view, no copy). Each layer's
+attention window is a Python int, so every full-sequence attention layer
+goes through the attention kernel. The zamba2-style hybrid runs
+``attn_every`` mamba layers, then the one shared attention+MLP block, per
+site, with a KV cache per site.
+
+MoE (``moe.py``) and the encoder-decoder family are not ported yet: they
+run no TPU kernel and are not on the serving path of this port (ROADMAP.md
+Queue 1, item 13)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .attention import attn_decode, attn_full, init_attn_layer
+from .common import ModelConfig, init_dense, rms_norm
+from .mamba2 import init_mamba_layer, mamba_decode, mamba_full
+
+FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported yet (ROADMAP.md Queue 1, "
+            f"item 13: MoE and encdec serving)")
+
+
+# ------------------------------------------------------------------- init
+def init_mlp_layer(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w1": init_dense(gen, (d, f), dtype=cfg.dtype),
+        "w3": init_dense(gen, (d, f), dtype=cfg.dtype),
+        "w2": init_dense(gen, (f, d), dtype=cfg.dtype),
+    }
+
+
+def _zeros(cfg: ModelConfig, gen: torch.Generator, *shape) -> torch.Tensor:
+    return torch.zeros(shape, dtype=cfg.dtype, device=gen.device)
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d = cfg.d_model
+    if cfg.family in ("dense", "vlm"):
+        return {"norm1": _zeros(cfg, gen, d),
+                "attn": init_attn_layer(cfg, gen),
+                "norm2": _zeros(cfg, gen, d),
+                "mlp": init_mlp_layer(cfg, gen)}
+    return {"norm1": _zeros(cfg, gen, d), "mamba": init_mamba_layer(cfg, gen)}
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    out = torch.empty((len(trees), *trees[0].shape), dtype=trees[0].dtype,
+                      device=trees[0].device)
+    for i, t in enumerate(trees):
+        out[i] = t
+    return out
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random weights drawn from ``gen`` on its device, in the reference's
+    distributions and layout (the values differ: another generator)."""
+    check_family(cfg)
+    params = {
+        "embed": init_dense(gen, (cfg.vocab, cfg.d_model), dtype=cfg.dtype),
+        "final_norm": _zeros(cfg, gen, cfg.d_model),
+        "layers": _stack([_init_block(cfg, gen)
+                          for _ in range(cfg.n_layers)]),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = init_dense(gen, (cfg.d_model, cfg.vocab),
+                                    dtype=cfg.dtype)
+    if cfg.family == "hybrid":
+        params["shared"] = {
+            "norm1": _zeros(cfg, gen, cfg.d_model),
+            "attn": init_attn_layer(cfg, gen),
+            "norm2": _zeros(cfg, gen, cfg.d_model),
+            "mlp": init_mlp_layer(cfg, gen),
+        }
+    return params
+
+
+# ---------------------------------------------------------------- helpers
+def layer(params: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: a view into each stacked leaf."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in params.items()}
+
+
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    cd = cfg.compute_dtype
+    h = F.silu(x @ p["w1"].to(cd)) * (x @ p["w3"].to(cd))
+    return h @ p["w2"].to(cd)
+
+
+def window_schedule(cfg: ModelConfig) -> list[int]:
+    """Per-layer attention window (0 = full), gemma3's 5:1 local:global."""
+    if cfg.sliding_window and cfg.global_every:
+        return [0 if (i + 1) % cfg.global_every == 0 else cfg.sliding_window
+                for i in range(cfg.n_layers)]
+    return [cfg.sliding_window] * cfg.n_layers
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    x = params["embed"][tokens].to(cfg.compute_dtype)
+    return x * (cfg.d_model ** 0.5)
+
+
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ head.to(cfg.compute_dtype)
+
+
+def _shared_block(cfg, shared, x):
+    h, kv = attn_full(cfg, shared["attn"],
+                      rms_norm(x, shared["norm1"], cfg.norm_eps), window=0)
+    x = x + h
+    x = x + mlp(cfg, shared["mlp"], rms_norm(x, shared["norm2"], cfg.norm_eps))
+    return x, kv
+
+
+# ------------------------------------------------------------ full forward
+def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                 collect_cache: bool = False):
+    """Full-sequence forward: (hidden (B, S, D), caches or None).
+
+    caches: dense/vlm ``(k, v)`` stacked (L, B, S, KH, Dh); ssm
+    ``{"conv", "ssm"}`` stacked (L, ...); hybrid ``(k, v, states)`` with k/v
+    stacked per site (n_sites, ...) and the mamba states per layer."""
+    check_family(cfg)
+    x = _embed(cfg, params, tokens)
+    layers = params["layers"]
+
+    if cfg.family in ("dense", "vlm"):
+        ks, vs = [], []
+        for i, w in enumerate(window_schedule(cfg)):
+            p = layer(layers, i)
+            h, (k, v) = attn_full(cfg, p["attn"],
+                                  rms_norm(x, p["norm1"], cfg.norm_eps),
+                                  window=w)
+            x = x + h
+            x = x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+        return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache
+                   else None)
+
+    convs, ssms, ks, vs = [], [], [], []
+    for i in range(cfg.n_layers):
+        p = layer(layers, i)
+        h = mamba_full(cfg, p["mamba"], rms_norm(x, p["norm1"], cfg.norm_eps),
+                       return_state=collect_cache)
+        if collect_cache:
+            h, st = h
+            convs.append(st["conv"])
+            ssms.append(st["ssm"])
+        x = x + h
+        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            x, (k, v) = _shared_block(cfg, params["shared"], x)
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+    if not collect_cache:
+        return x, None
+    states = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+    if cfg.family == "ssm":
+        return x, states
+    return x, (torch.stack(ks), torch.stack(vs), states)
+
+
+# ------------------------------------------------------------------ decode
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Zeroed decode cache: KV in ``dtype``, conv and ssm states in f32,
+    ``pos`` a Python int."""
+    check_family(cfg)
+    hd = cfg.resolved_head_dim
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,  # noqa: E731
+                                                     device=device)
+    if cfg.family in ("dense", "vlm"):
+        kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
+        return {"k": z(*kv, dt=dtype), "v": z(*kv, dt=dtype), "pos": 0}
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = h * p + 2 * n
+    cache = {"conv": z(cfg.n_layers, batch, cfg.conv_width - 1, conv_dim),
+             "ssm": z(cfg.n_layers, batch, h, n, p), "pos": 0}
+    if cfg.family == "hybrid":
+        kv = (cfg.n_layers // cfg.attn_every, batch, max_len,
+              cfg.n_kv_heads, hd)
+        cache["k"] = z(*kv, dt=dtype)
+        cache["v"] = z(*kv, dt=dtype)
+    return cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache). The
+    cache's tensors are updated in place; ``pos`` advances by one."""
+    check_family(cfg)
+    x = _embed(cfg, params, tokens)
+    pos = cache["pos"]
+    layers = params["layers"]
+
+    if cfg.family in ("dense", "vlm"):
+        for i, w in enumerate(window_schedule(cfg)):
+            p = layer(layers, i)
+            x = x + attn_decode(cfg, p["attn"],
+                                rms_norm(x, p["norm1"], cfg.norm_eps),
+                                cache["k"][i], cache["v"][i], pos, window=w)
+            x = x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+    else:
+        shared = params.get("shared")
+        for i in range(cfg.n_layers):
+            p = layer(layers, i)
+            y, conv, ssm = mamba_decode(
+                cfg, p["mamba"], rms_norm(x, p["norm1"], cfg.norm_eps),
+                cache["conv"][i], cache["ssm"][i])
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+            x = x + y
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                site = i // cfg.attn_every
+                x = x + attn_decode(
+                    cfg, shared["attn"],
+                    rms_norm(x, shared["norm1"], cfg.norm_eps),
+                    cache["k"][site], cache["v"][site], pos, window=0)
+                x = x + mlp(cfg, shared["mlp"],
+                            rms_norm(x, shared["norm2"], cfg.norm_eps))
+    cache["pos"] = pos + 1
+    return _logits(cfg, params, x), cache
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_len: int):
+    """Run the prompt once: (last-position logits (B, 1, V), a decode cache
+    sized ``max_len``). SSM and hybrid families take the final recurrent
+    state of every layer from the SSD kernel (one pass, no replay)."""
+    b, s = tokens.shape
+    x, collected = forward_full(cfg, params, tokens, collect_cache=True)
+    dev = tokens.device
+    if cfg.family in ("dense", "vlm"):
+        k, v = collected
+        cache = init_cache(cfg, b, max_len, dtype=k.dtype, device=dev)
+    else:
+        cache = init_cache(cfg, b, max_len, device=dev)
+        states = collected if cfg.family == "ssm" else collected[2]
+        cache["conv"].copy_(states["conv"])
+        cache["ssm"].copy_(states["ssm"])
+        if cfg.family == "hybrid":
+            k, v = collected[:2]
+    if cfg.family != "ssm":
+        cache["k"][:, :, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :, :s] = v.to(cache["v"].dtype)
+    cache["pos"] = s
+    return _logits(cfg, params, x[:, -1:, :]), cache

@@ -1,5 +1,6 @@
 """Kernels of the port on the card: each against its plain version on the
-same CUDA tensors, and the evaluator on the card against the CPU.
+same CUDA tensors, the evaluator on the card against the CPU, and the
+smoke-size hybrid served on the card against the CPU.
 
 Marked ``cuda``: without a card every test skips (decided inside the
 fixture, never at import). On a machine with one:
@@ -107,3 +108,80 @@ def test_evaluator_card_matches_cpu(dev):
     assert after["walk"] == before["walk"] + 1
     cpu = Evaluator(spec, f, device="cpu").batch(designs)
     np.testing.assert_allclose(gpu, cpu, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
+    (2, 32, 32, 512, 80, True, None),
+    (1, 32, 4, 256, 128, True, None),
+    (1, 4, 1, 1024, 256, True, 512),
+    (2, 4, 2, 333, 16, False, None),
+])
+def test_attention_kernel_against_plain(dev, dtype, tol, b, h, kh, s, d,
+                                        causal, window):
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d)))
+    n0 = ops.KERNELS["flash_attention"].launches
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    assert ops.KERNELS["flash_attention"].launches == n0 + 1
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(got, ops.attention(q, k, v, causal=causal,
+                                          window=window))
+
+
+def test_attention_kernel_refuses_wide_heads(dev):
+    q = torch.zeros((1, 1, 4, 264), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.attention(q, q, q)
+
+
+@pytest.mark.parametrize("b,s,h,p,n", [(2, 512, 80, 64, 64),
+                                       (2, 300, 4, 64, 128),
+                                       (2, 40, 4, 32, 16)])
+def test_ssd_kernel_against_plain(dev, b, s, h, p, n):
+    g = torch.Generator(device=dev).manual_seed(s)
+    x = torch.randn((b, s, h, p), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=dev)) * 0.1
+    a = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)
+    bm, cm = (torch.randn((b, s, n), generator=g, device=dev) * 0.5
+              for _ in range(2))
+    d = torch.full((h,), 0.5, device=dev)
+    chunk = min(64, s)
+    y, st = ops.ssd(x, dt, a, bm, cm, d, chunk=chunk, return_state=True)
+    wy, wst = ref.ssd_padded_ref(x, dt, a, bm, cm, d, chunk=chunk,
+                                 return_state=True)
+    assert float((y - wy).abs().max()) <= 2e-4
+    assert float((st - wst).abs().max()) <= 2e-4
+    y2, st2 = ops.ssd(x, dt, a, bm, cm, d, chunk=chunk, return_state=True)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+def test_smoke_hybrid_generates_the_same_tokens_on_card_and_cpu(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config("zamba2-2.7b", smoke=True).scaled(
+        compute_dtype=torch.float32)
+    gpu = build(cfg, seed=3, device="cuda")
+    cpu = build(cfg, _to_cpu(gpu.params), device="cpu")
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(2, 70)).astype(np.int32)
+    scfg = ServeConfig(max_new_tokens=6, max_len=96)
+    before = ops.launches()
+    out = Engine(gpu, scfg).generate(prompts)
+    after = ops.launches()
+    assert after["ssd"] - before["ssd"] == cfg.n_layers
+    assert (after["flash_attention"] - before["flash_attention"]
+            == cfg.n_layers // cfg.attn_every)
+    np.testing.assert_array_equal(out, Engine(cpu, scfg).generate(prompts))
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}

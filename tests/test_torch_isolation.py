@@ -28,6 +28,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.noc.cli\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.serve\n"
+        "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -41,7 +43,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 def test_no_source_of_the_port_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    assert len(files) > 30
+    assert ROOT / "src" / "repro_torch" / "models" / "transformer.py" in files
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
@@ -74,3 +77,28 @@ def test_entry_points_default_to_cuda():
     ev_cpu = Evaluator(spec, f, device="cpu")
     assert ev_cpu.f.device.type == "cpu"
     assert np.all(np.isfinite(ev_cpu(spec.mesh_design())))
+
+
+def test_serving_entry_points_default_to_cuda():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config("zamba2-2.7b", smoke=True).scaled(
+        compute_dtype=torch.float32)
+    if torch.cuda.is_available():
+        assert build(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Engine(build(cfg), ServeConfig())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--arch", "zamba2-2.7b", "--smoke"])
+    model = build(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    assert all(b.device.type == "cpu" for b in model.buffers())
+    out = Engine(model, ServeConfig(max_new_tokens=2)).generate(
+        np.ones((1, 4), np.int32))
+    assert out.shape == (1, 2)
