@@ -8,8 +8,10 @@ Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 each raising on failure:
 
   1. header: the card's name and power limit, torch and CUDA versions; the
-     four kernels built from ``src/repro_torch/csrc`` (build seconds,
-     ``-Xptxas -v`` registers and shared memory);
+     kernels built from ``src/repro_torch/csrc`` (build seconds, ``-Xptxas
+     -v`` registers, spills and shared memory), and the tensor-core
+     instructions (HMMA, HGMMA) in each library's SASS, which must be there
+     for K5 and K6;
   2. every kernel against its plain PyTorch version on the card (and the
      host numpy mirrors where the port has them);
   3. the main path: MOO-STAGE on spec_64 under the paper's BFS traffic,
@@ -23,18 +25,28 @@ each raising on failure:
      device's idle share, the kernels that take the most time;
   8. the two LLM kernels (K5 attention, K6 SSD) against their plain
      versions on the card at the serving path's shapes and at ragged,
-     GQA, windowed and f32 ones, each run twice and bit-identical;
+     GQA, windowed, bidirectional and f32 ones (and K6 with a partial last
+     head group), each run twice and bit-identical;
   9. the serving path: zamba2-2.7b at full width (random weights from a
      seeded generator) generating 16 tokens for 8 prompts of 512 through
      ``repro_torch.serve.Engine``, with the launches of K5 and K6 counted
      over that run alone; its prefill against the same prefill through the
-     plain versions on the card; the smoke-size hybrid on card and CPU;
+     plain versions on the card (next-token argmax equal on every row);
+     the smoke-size hybrid on card and CPU;
  10. K5 and K6 timed at phase 9's shapes beside their plain versions, their
-     bounds and (K5) PyTorch's own attention call, and one ``generate``
-     under torch.profiler. The ``kernels`` JSON line lists all six kernels.
+     bounds and (K5) PyTorch's own attention call, and one prefill and one
+     ``generate`` under torch.profiler. The ``kernels`` JSON line lists all
+     six kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.
+
+    python3 chip_smoke.py --compare-kernels DIR
+
+times only K5 and K6 at the serving shapes, from another checkout ``DIR``
+(for example the parent commit, unpacked with ``git archive``) beside this
+one's, each in a fresh process, in the order DIR, this, this, DIR, by the
+same two methods as phase 10.
 """
 
 from __future__ import annotations
@@ -48,10 +60,11 @@ import time
 from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, bf16
-#: dense on the tensor cores, and HBM3 bandwidth, at the full 700 W power
-#: limit.
+#: and TF32 dense on the tensor cores, and HBM3 bandwidth, at the full
+#: 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 #: The kernels of the NoC main path (phase 3) and of the serving path
@@ -63,6 +76,10 @@ LLM_KERNELS = ("flash_attention", "ssd")
 #: reference's own, tests/test_kernels.py): attention in bf16 / f32, SSD.
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SSD_TOL = 2e-4
+#: The K5 and K6 times at the serving shapes that the tensor-core designs
+#: are held to, in ms (printed as met or missed in phase 10).
+ATTN_BAR_MS = 0.30
+SSD_BAR_MS = 0.35
 #: The serving path's prefill, kernels against plain versions on the card:
 #: largest |logit difference| allowed, as a share of the largest |logit|.
 #: Both run the bf16 model; they differ by bf16 roundings of attention and
@@ -79,8 +96,11 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def time_ms(fn, warmup: int = 5, reps: int = 50) -> float:
-    """Median wall time of one call on the card, by CUDA events."""
+def time_ms(fn, warmup: int = 5, reps: int = 20, inner: int = 10) -> float:
+    """Device time of one call: the median over ``reps`` rounds of CUDA
+    event time across ``inner`` back-to-back calls, divided by ``inner``.
+    Queued calls hide the host's work per call wherever the device's work
+    is longer."""
     import torch
 
     for _ in range(warmup):
@@ -91,11 +111,18 @@ def time_ms(fn, warmup: int = 5, reps: int = 50) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def time_ms_per_call(fn, warmup: int = 5, reps: int = 50) -> float:
+    """Median time of one call between two CUDA events, the host's work for
+    that call included where the device waits for it."""
+    return time_ms(fn, warmup, reps, inner=1)
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -145,12 +172,16 @@ ATTN_CASES = (
     (2, 4, 1, 1024, 256, True, 512, "bfloat16"),    # gemma3 sliding window
     (2, 8, 2, 333, 80, True, None, "float32"),      # off every tile, f32
     (1, 4, 4, 200, 32, False, None, "float32"),     # bidirectional, f32
+    (2, 8, 2, 333, 80, True, None, "bfloat16"),     # off every tile, GQA
+    (1, 4, 4, 200, 32, False, None, "bfloat16"),    # bidirectional
 )
 #: (B, S, H, P, N, chunk): the serving path's shape first.
 SSD_CASES = (
     (8, 512, 80, 64, 64, 64),   # zamba2 prefill, one mamba layer
     (2, 300, 8, 64, 128, 64),   # padded tail (mamba2-1.3b's N)
     (2, 40, 8, 64, 64, 40),     # S < 64: one short chunk
+    (2, 128, 7, 64, 64, 64),    # H = 7: a last head group of one head
+    (2, 200, 8, 64, 16, 64),    # N = 16
 )
 
 
@@ -284,17 +315,25 @@ def serve_full_width(torch, ops, ref, dev) -> dict:
     finally:
         ops.attention, ops.ssd = kernels
     torch.cuda.synchronize()
-    lg, pl = logits.float(), plain.float()
+    lg = logits.float().reshape(batch, -1)
+    pl = plain.float().reshape(batch, -1)
     check(bool(torch.isfinite(lg).all()), "non-finite logits")
     scale = float(pl.abs().max())
     diff = float((lg - pl).abs().max())
-    agree = float((lg.argmax(-1) == pl.argmax(-1)).float().mean())
+    same = lg.argmax(-1) == pl.argmax(-1)
+    top2 = pl.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
     check(diff <= PREFILL_REL_TOL * scale,
           f"prefill logits: max |diff| {diff} > {PREFILL_REL_TOL} x {scale}")
+    check(bool(same.all()),
+          f"prefill: next-token argmax differs on rows "
+          f"{(~same).nonzero().flatten().tolist()} (plain top-2 margins "
+          f"{margin[~same].tolist()}, max |diff| {diff})")
     print(f"prefill against the plain versions on the card: max |logit diff| "
           f"{diff:.4g} = {diff / scale:.4g} of the logits' scale {scale:.4g} "
           f"(tolerance {PREFILL_REL_TOL}); next-token argmax agrees on "
-          f"{agree:.3f} of the batch")
+          f"{int(same.sum())}/{batch} rows; plain top-2 margins "
+          f"{[round(m, 4) for m in margin.tolist()]}")
 
     smoke = get_config("zamba2-2.7b", smoke=True).scaled(
         compute_dtype=torch.float32)
@@ -332,6 +371,11 @@ def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
     n_bytes = 2 * (2 * b * h * s * d + 2 * b * kh * s * d)
     rows.append(("flash_attention", ms, plain_ms, lib_ms,
                  *bound(n_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)))
+    print(f"K5 bar {ATTN_BAR_MS} ms: {'met' if ms <= ATTN_BAR_MS else 'MISSED'}"
+          f" ({ms:.4f} ms; scaled_dot_product_attention {lib_ms:.4f} ms); "
+          f"one call between two events, host included: "
+          f"{time_ms_per_call(lambda: ops.attention(q, k, v, causal=True)):.4f}"
+          f" ms")
 
     case = SSD_CASES[0]
     b, s, h, p, n, chunk = case
@@ -344,7 +388,23 @@ def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
     n_ops = b * h * (s // chunk) * per_chunk
     n_bytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + 2 * h
                    + b * h * n * p)
-    rows.append(("ssd", ms, plain_ms, None, *bound(n_bytes, n_ops)))
+    # The kernel runs each f32 product as three TF32 products (3xTF32): its
+    # bound counts them at the TF32 tensor-core peak; the FP32 CUDA-core
+    # bound of the same products is printed beside it.
+    rows.append(("ssd", ms, plain_ms, None,
+                 *bound(n_bytes, 3 * n_ops, PEAK_TF32_FLOPS)))
+    per_call = time_ms_per_call(
+        lambda: ops.ssd(*args, chunk=chunk, return_state=True))
+    bf16_args = tuple(t.bfloat16().float() for t in args)
+    bf16_ms = time_ms(lambda: ops.ssd(*bf16_args, chunk=chunk,
+                                      return_state=True))
+    print(f"K6 bar {SSD_BAR_MS} ms: {'met' if ms <= SSD_BAR_MS else 'MISSED'} "
+          f"({ms:.4f} ms; one call between two events, host included: "
+          f"{per_call:.4f} ms; on the same inputs rounded to bf16, as the "
+          f"serving path's x, B, C are: {bf16_ms:.4f} ms); bounds: bytes {n_bytes / PEAK_BYTES_PER_S * 1e3:.6f}"
+          f" ms ({n_bytes / 1e6:.1f} MB), 3xTF32 operations "
+          f"{3 * n_ops / PEAK_TF32_FLOPS * 1e3:.6f} ms, the same products on "
+          f"the FP32 CUDA cores {n_ops / PEAK_FP32_FLOPS * 1e3:.6f} ms")
 
     out = []
     for name, ms, plain_ms, lib_ms, bound_ms, bound_by in rows:
@@ -362,6 +422,49 @@ def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
     return out
 
 
+def serving_kernel_times(src: Path) -> dict:
+    """K5 and K6 of the package under ``src`` at phase 10's shapes: device
+    time (``time_ms``) and one call between two events
+    (``time_ms_per_call``)."""
+    sys.path.insert(0, str(src))
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    q, k, v = attn_inputs(torch, ATTN_CASES[0], dev)
+    args = ssd_inputs(torch, SSD_CASES[0], dev)
+    chunk = SSD_CASES[0][-1]
+    fns = {"flash_attention": lambda: ops.attention(q, k, v, causal=True),
+           "ssd": lambda: ops.ssd(*args, chunk=chunk, return_state=True)}
+    out = {"package": str(Path(ops.__file__).resolve().parents[1])}
+    for name, fn in fns.items():
+        out[name] = {"ms": time_ms(fn), "per_call_ms": time_ms_per_call(fn)}
+    return out
+
+
+def compare_kernels(other: Path) -> int:
+    """K5 and K6 of checkout ``other`` timed beside this checkout's, each
+    in a fresh process, in the order other, this, this, other."""
+    root = Path(__file__).resolve().parent
+    check((other / "src" / "repro_torch" / "csrc").is_dir(),
+          f"{other}: no src/repro_torch/csrc")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    for label, tree in (("other", other), ("this", root), ("this", root),
+                        ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--time-kernels",
+             str(tree.resolve() / "src")], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"timing {tree} failed:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        print(f"{label}: {proc.stdout.strip().splitlines()[-1]}", flush=True)
+    return 0
+
+
 def random_graphs(torch, rng, bsz: int, n: int, p_edge: float, dev):
     """INF-sparse (B, N, N) f32 matrices of small integer weights."""
     import numpy as np
@@ -371,19 +474,32 @@ def random_graphs(torch, rng, bsz: int, n: int, p_edge: float, dev):
     return torch.as_tensor(w, device=dev)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--compare-kernels", type=Path, metavar="DIR",
+                        help="time K5 and K6 of checkout DIR beside this "
+                             "one's, and nothing else")
+    parser.add_argument("--time-kernels", type=Path, help=argparse.SUPPRESS)
+    opts = parser.parse_args(argv)
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(root / "src"))
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if opts.time_kernels is not None:
+        print(json.dumps(serving_kernel_times(opts.time_kernels)))
+        return 0
+    if opts.compare_kernels is not None:
+        return compare_kernels(opts.compare_kernels)
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
 
     from repro_torch.core import routing
     from repro_torch.core.evaluate import Evaluator
@@ -417,8 +533,14 @@ def main() -> int:
           + json.dumps({k: round(v, 2) for k, v in build_secs.items()}))
     for name, log in build.ptxas_log.items():
         for line in log.splitlines():
-            if "Used" in line or "Compiling entry" in line:
+            if "Used" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
+    for name in build.SOURCES:
+        counts = build.sass_counts(name)
+        print(f"  sass[{name}] tensor-core instructions {json.dumps(counts)}")
+        if name in ("flash_attention", "ssd"):
+            check(sum(counts.values()) > 0,
+                  f"{name}: no HMMA/HGMMA in its SASS")
 
     # ------------------------------------------------------------- phase 2
     phase("2 kernels against their plain versions")
@@ -695,4 +817,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -90,3 +91,14 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def sass_counts(name: str, opcodes=("HMMA", "HGMMA")) -> dict[str, int]:
+    """How many instructions of each opcode the SASS of the built library
+    for ``csrc/<name>.cu`` holds (``cuobjdump -sass``): tensor-core
+    instructions are ``HMMA`` (``mma.sync``) and ``HGMMA`` (``wgmma``)."""
+    library(name)
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}

@@ -239,7 +239,8 @@ def walk(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
 
 
 # ------------------------------------------------------------------- K5
-#: Largest head dimension the attention kernel takes (8 columns per lane).
+#: Largest head dimension the attention kernel takes (bf16: padded to a
+#: multiple of 16 on the tensor cores; f32: 8 columns per lane).
 ATTN_MAX_HEAD_DIM = 256
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -247,8 +248,12 @@ _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None) -> torch.Tensor:
     """GQA attention forward (K5): q (B, H, Sq, D), k/v (B, KH, Sk, D), bf16
-    or f32, any strides with a contiguous last dimension. Returns
-    (B, H, Sq, D) in q's dtype. ``window`` None means no window."""
+    or f32, any strides with a contiguous last dimension, D <= 256. Returns
+    (B, H, Sq, D) in q's dtype. ``window`` None means no window.
+
+    On the card the dtype picks the kernel: bf16 runs on the tensor cores
+    (bf16 operands, f32 accumulators, probabilities as two bf16 terms
+    hi + lo in p.v), f32 on the CUDA cores in f32."""
     if not _on_cuda(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     b, h, sq, d = q.shape
@@ -292,6 +297,10 @@ def ssd(x, dt, a, b, c, d, *, chunk: int = 64, return_state: bool = False):
     """Mamba-2 SSD chunked scan (K6): x (B,S,H,P), dt (B,S,H), a (H,), b/c
     (B,S,N), d (H,), all f32. Returns y (B,S,H,P), plus the final state
     (B,H,N,P) with ``return_state``.
+
+    On the card one block runs 3 heads of a batch row (2 at N > 64),
+    sharing each chunk's C B^T, with every f32 product as three TF32
+    products on the tensor cores.
 
     On the CPU this keeps the reference's choice: the chunked form when S is
     a multiple of ``chunk`` above it, else the sequential scan. The kernel

@@ -117,6 +117,9 @@ def test_evaluator_card_matches_cpu(dev):
     (1, 32, 4, 256, 128, True, None),
     (1, 4, 1, 1024, 256, True, 512),
     (2, 4, 2, 333, 16, False, None),
+    (2, 8, 2, 333, 80, True, None),
+    (1, 4, 4, 200, 32, False, None),
+    (1, 2, 1, 100, 20, True, None),       # D % 8 != 0: plain tile loads
 ])
 def test_attention_kernel_against_plain(dev, dtype, tol, b, h, kh, s, d,
                                         causal, window):
@@ -141,7 +144,11 @@ def test_attention_kernel_refuses_wide_heads(dev):
 
 @pytest.mark.parametrize("b,s,h,p,n", [(2, 512, 80, 64, 64),
                                        (2, 300, 4, 64, 128),
-                                       (2, 40, 4, 32, 16)])
+                                       (2, 40, 4, 32, 16),
+                                       (2, 128, 7, 64, 64),
+                                       (2, 150, 5, 64, 128),
+                                       (2, 200, 8, 64, 16),
+                                       (1, 100, 3, 30, 10)])
 def test_ssd_kernel_against_plain(dev, b, s, h, p, n):
     g = torch.Generator(device=dev).manual_seed(s)
     x = torch.randn((b, s, h, p), generator=g, device=dev)

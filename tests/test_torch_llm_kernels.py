@@ -180,3 +180,143 @@ def test_wrappers_refuse_other_devices():
         ops.ssd(x, torch.zeros(1, 4, 2).to("meta"), torch.zeros(2),
                 torch.zeros(1, 4, 3), torch.zeros(1, 4, 3), torch.zeros(2))
     assert jax.default_backend() == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# The card kernels' precision schemes, emulated in plain PyTorch on the CPU:
+# K6 runs its f32 products on the tensor cores as three TF32 products
+# (3xTF32), K5 rounds its probabilities to bf16 before p.v.
+
+def _tf32(t):
+    """What the tensor core reads of an f32 operand as TF32: the value with
+    its low 13 mantissa bits masked off (rounded toward zero)."""
+    bits = t.contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _tf32_nearest(t):
+    """f32 rounded to TF32 as the K6 kernel splits it: half an ulp added to
+    the 13 dropped bits, then masked (nearest, ties away from zero)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the K6 kernel runs it: each f32 operand split into hi (TF32,
+    nearest) and lo = v - hi, which the tensor core reads as TF32 in turn
+    (truncated); lo*hi + hi*lo + hi*hi summed."""
+    ah, bh = _tf32_nearest(a), _tf32_nearest(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _ssd_emulated(x, dt, a, b, c, d, chunk, mm):
+    """The K6 kernel's chunk loop with its products through ``mm``: per
+    chunk G = C B^T, then per head W = G o exp(s_i - s_j) o dt_j (masked
+    before the exponential), y = W x + exp(s) o (C h) + d x and
+    h = exp(s_last) h + (B o u)^T x."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    pad = -s % chunk
+    if pad:
+        x, dt, b, c = (torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, b, c))
+    tril = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    state = torch.zeros((bsz, h, n, p))
+    ys = []
+    for t0 in range(0, s + pad, chunk):
+        xs = x[:, t0:t0 + chunk].permute(0, 2, 1, 3)          # (B,H,Q,P)
+        dts = dt[:, t0:t0 + chunk].permute(0, 2, 1)           # (B,H,Q)
+        bs, cs = b[:, t0:t0 + chunk], c[:, t0:t0 + chunk]     # (B,Q,N)
+        sc = torch.cumsum(dts * a[None, :, None], dim=-1)
+        g = mm(cs, bs.transpose(1, 2))                        # (B,Q,Q)
+        seg = torch.where(tril, sc[..., :, None] - sc[..., None, :],
+                          torch.tensor(float("-inf")))
+        w = g[:, None] * torch.exp(seg) * dts[..., None, :]
+        y = (mm(w, xs) + torch.exp(sc)[..., None] * mm(cs[:, None], state)
+             + d[None, :, None, None] * xs)
+        ys.append(y.permute(0, 2, 1, 3))
+        u = torch.exp(sc[..., -1:] - sc) * dts
+        state = (torch.exp(sc[..., -1])[..., None, None] * state
+                 + mm((bs[:, None] * u[..., None]).transpose(2, 3), xs))
+    return torch.cat(ys, dim=1)[:, :s], state
+
+
+def test_ssd_3xtf32_products_meet_the_tolerance():
+    """At zamba2's head and state widths, the kernel's split products stay
+    within 2e-4 of the plain version; one TF32 rounding of each operand
+    would not."""
+    t = [torch.from_numpy(v) for v in _ssd_inputs(1, 128, 8, 64, 64, seed=11)]
+    want_y, want_h = ref.ssd_padded_ref(*t, chunk=64, return_state=True)
+    y, st = _ssd_emulated(*t, 64, _mm_3xtf32)
+    err = max(float((y - want_y).abs().max()), float((st - want_h).abs().max()))
+    assert err <= 2e-4
+    y1, st1 = _ssd_emulated(*t, 64, _mm_tf32)
+    err1 = max(float((y1 - want_y).abs().max()),
+               float((st1 - want_h).abs().max()))
+    assert err1 > 2e-4 > 10 * err
+
+
+def _attention_bf16_p(q, k, v, *, causal, window, split, block_k=64):
+    """The K5 kernel's bf16 scheme: f32 logits from bf16 q and k, an online
+    softmax over tiles of ``block_k`` keys with f32 m and l, probabilities
+    as bf16 before p.v (with ``split``, as hi + lo, two bf16 terms, as the
+    kernel does; else one rounding), f32 accumulators, the output rounded
+    to bf16."""
+    b, h, sq, dh = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    rep = torch.arange(h) // (h // kh)
+    qf, kf, vf = q.float(), k.float()[:, rep], v.float()[:, rep]
+    s = qf @ kf.transpose(2, 3) * dh ** -0.5
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    m = torch.full((b, h, sq, 1), ref.NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, dh))
+    for k0 in range(0, sk, block_k):
+        mk = mask[:, k0:k0 + block_k]
+        st = torch.where(mk, s[..., k0:k0 + block_k],
+                         torch.tensor(ref.NEG_INF))
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mk, torch.exp(st - m_new), torch.zeros(()))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        vt = vf[:, :, k0:k0 + block_k]
+        pv = hi @ vt
+        if split:
+            pv = (p - hi).bfloat16().float() @ vt + pv
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.where(l == 0, torch.ones(()), l)).bfloat16()
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("b,h,kh,s,dh,window", [(2, 8, 2, 256, 80, None),
+                                                (1, 2, 1, 1024, 256, 512)])
+def test_attention_bf16_probabilities_meet_the_tolerance(b, h, kh, s, dh,
+                                                         window, split):
+    """Probabilities rounded to bf16 before p.v stay within the bf16
+    tolerance 2e-2 of the plain version; split into two bf16 terms, as the
+    tensor-core kernel keeps them, they are closer still."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _attn_inputs(b, h, kh, s, dh, seed=5))
+    want = ref.attention_ref(q, k, v, causal=True, window=window).float()
+    got = _attention_bf16_p(q, k, v, causal=True, window=window,
+                            split=split)
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - want).abs().max())
+    assert err <= 2e-2
+    if split:
+        one = _attention_bf16_p(q, k, v, causal=True, window=window,
+                                split=False)
+        assert err <= float((one.float() - want).abs().max())
