@@ -20,9 +20,12 @@ each raising on failure:
   4. card against CPU end to end on spec_tiny, seeds 0/1/2;
   5. the evaluator's delta path on the card, bit-equal to the dense path;
   6. each kernel timed at its main-path shapes beside its plain version and
-     its bound, printed as one JSON ``kernels`` line;
+     its bound, printed as one JSON ``kernels`` line; K1–K4 also by the
+     profiler's device time per call, which below ~20 us is the honest
+     reading (events then time the wrapper's host work);
   7. one more main-path run under torch.profiler: device busy time, the
-     device's idle share, the kernels that take the most time;
+     device's idle share, the kernels that take the most time, and each
+     NoC kernel's device time and launches in that run;
   8. the two LLM kernels (K5 attention, K6 SSD) against their plain
      versions on the card at the serving path's shapes and at ragged,
      GQA, windowed, bidirectional and f32 ones (and K6 with a partial last
@@ -43,10 +46,14 @@ non-zero before it.
 
     python3 chip_smoke.py --compare-kernels DIR
 
-times only K5 and K6 at the serving shapes, from another checkout ``DIR``
-(for example the parent commit, unpacked with ``git archive``) beside this
-one's, each in a fresh process, in the order DIR, this, this, DIR, by the
-same two methods as phase 10.
+times K1 (one evaluator call's APSP) and K4 at phase 6's shapes and K5 and
+K6 at the serving shapes, from another checkout ``DIR`` (for example the
+parent commit, unpacked with ``git archive``) beside this one's, each in a
+fresh process, in the order DIR, this, this, DIR: device time over 10
+back-to-back calls, one call between two events, and the profiler's device
+time per call. Each tree builds its NoC inputs from the same seed through
+its own ``routing`` and ``objectives``, then runs phase 3's main path twice
+(wall seconds, front and PHV).
 """
 
 from __future__ import annotations
@@ -63,6 +70,10 @@ from pathlib import Path
 #: and TF32 dense on the tensor cores, and HBM3 bandwidth, at the full
 #: 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
+#: FP32 instructions per second outside the tensor cores: the 67 TFLOP/s
+#: peak counts a fused multiply-add as two flops. An add and a min (K1) are
+#: two instructions, and so is any other pair of f32 operations.
+PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -70,6 +81,17 @@ PEAK_BYTES_PER_S = 3.35e12
 #: The kernels of the NoC main path (phase 3) and of the serving path
 #: (phase 9).
 NOC_KERNELS = ("minplus", "forest_predict", "score_block_max", "walk")
+#: The CUDA functions behind each NoC wrapper, as the profiler names them.
+NOC_SYMBOLS = {
+    "minplus": ("apsp_kernel", "minplus_kernel"),
+    "forest_predict": ("forest_predict_kernel",),
+    "score_block_max": ("score_block_kernel", "score_fold_kernel"),
+    "walk": ("walk_tree_kernel", "walk_util_kernel"),
+}
+#: The redesigned NoC kernels' bars, in ms of device time per call at
+#: phase 6's shapes, and over the phase 7 run of the main path.
+NOC_BAR_MS = {"minplus": 0.02, "walk": 0.05}
+NOC_TRACE_BAR_MS = {"minplus": 1.5, "walk": 3.0}
 LLM_KERNELS = ("flash_attention", "ssd")
 
 #: Tolerances of the LLM kernels against their plain versions (the
@@ -125,6 +147,33 @@ def time_ms_per_call(fn, warmup: int = 5, reps: int = 50) -> float:
     return time_ms(fn, warmup, reps, inner=1)
 
 
+def profiled(torch, fn, calls: int = 10, warmup: int = 3):
+    """The CUDA kernels that ``calls`` back-to-back calls of ``fn`` run, as
+    torch.profiler reads them: [(name, device ms in total, launches)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms_per_call(torch, fn, symbols, calls: int = 10) -> float | None:
+    """Device time of one call of ``fn`` by the profiler, counting only the
+    kernels whose names hold one of ``symbols``; None when the profiler saw
+    none of them (not measured)."""
+    rows = [r for r in profiled(torch, fn, calls)
+            if any(sym in r[0] for sym in symbols)]
+    return sum(r[1] for r in rows) / calls if rows else None
+
+
 def bound(n_bytes: float, n_ops: float,
           peak_ops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -135,10 +184,13 @@ def bound(n_bytes: float, n_ops: float,
 def trace_main_path(torch, fn, untraced_wall: float,
                     untraced_name: str = "phase 3's run (which includes "
                                          "first-use set-up)",
-                    label: str = "trace") -> None:
+                    label: str = "trace",
+                    symbols: dict | None = None) -> dict:
     """Device time of one more run of ``fn`` under torch.profiler: the sum
     of kernel times, the device's idle share of the traced run's and of an
-    untraced run's wall time, and the kernels that take most of it."""
+    untraced run's wall time, and the kernels that take most of it. Returns
+    {name: (device ms, launches)} for each entry of ``symbols`` (a wrapper
+    name and the CUDA functions behind it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,7 +205,7 @@ def trace_main_path(torch, fn, untraced_wall: float,
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if not kern:
         print(f"{label}: the profiler saw no device time (not measured)")
-        return
+        return {}
     print(f"{label}: device busy {busy_ms:.3f} ms over {len(kern)} kernel "
           f"names; device idle share {1 - busy_ms / (traced_wall * 1e3):.4f} "
           f"of the traced run's {traced_wall * 1e3:.1f} ms wall, "
@@ -162,6 +214,14 @@ def trace_main_path(torch, fn, untraced_wall: float,
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+    totals = {}
+    for name, syms in (symbols or {}).items():
+        rows = [e for e in kern if any(sym in e.key for sym in syms)]
+        totals[name] = (sum(e.self_device_time_total for e in rows) / 1e3,
+                        sum(e.count for e in rows))
+        print(f"  {name}: {totals[name][0]:.3f} ms of device time over "
+              f"{totals[name][1]} kernel launches ({', '.join(syms)})")
+    return totals
 
 
 # ------------------------------------------------------ LLM slice (8-10)
@@ -422,30 +482,82 @@ def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
     return out
 
 
-def serving_kernel_times(src: Path) -> dict:
-    """K5 and K6 of the package under ``src`` at phase 10's shapes: device
-    time (``time_ms``) and one call between two events
-    (``time_ms_per_call``)."""
+def run_main_path(torch):
+    """The NoC main path through ``repro_torch.noc.run`` on the card:
+    MOO-STAGE on spec_64 under BFS traffic, case5, 2000 evaluations from
+    seed 0. Returns (problem, result, wall seconds). max_local_steps=40:
+    with the default 10 000 the first local search alone spends the 2000
+    evaluations and the surrogate is never queried."""
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec("64"), traffic="BFS", case="case5")
+    t0 = time.perf_counter()
+    res = run(problem, "stage", budget=Budget(max_evals=2000, seed=0),
+              config={"max_local_steps": 40}, device="cuda")
+    torch.cuda.synchronize()
+    return problem, res, time.perf_counter() - t0
+
+
+def noc_timing_inputs(torch, dev, bsz: int = 48) -> dict:
+    """Phase 6's NoC inputs: ``bsz`` random spec_64 designs (one
+    neighbourhood of 24 + 24 moves) from seed 0, their hop costs, next hops
+    and BFS slot traffic, through the ``repro_torch`` on ``sys.path``."""
+    import numpy as np
+
+    from repro_torch.core import routing
+    from repro_torch.core.objectives import design_cost, make_consts
+    from repro_torch.core.problem import random_design, spec_64
+
+    spec = spec_64()
+    consts = make_consts(spec, dev.type)
+    rng = np.random.default_rng(0)
+    designs = [random_design(spec, rng) for _ in range(bsz)]
+    adjs = torch.as_tensor(np.stack([d.adj for d in designs]), device=dev)
+    costs = design_cost(consts, adjs).contiguous()
+    nh = routing.next_hop(costs, routing.apsp_batched(costs,
+                                                      consts.apsp_iters))
+    return {"costs": costs, "iters": consts.apsp_iters, "nh": nh.contiguous(),
+            "f": slot_traffic(torch, spec, designs, consts, dev),
+            "delay": consts.link_delay, "max_hops": spec.max_hops}
+
+
+def kernel_times(src: Path) -> dict:
+    """K1 and K4 at phase 6's shapes and K5 and K6 at phase 10's, of the
+    package under ``src``: device time (``time_ms``), one call between two
+    events (``time_ms_per_call``) and the profiler's device time per call
+    (all of the call's kernels); then two runs of the main path (wall
+    seconds, and the second run's accounting, front and PHV)."""
     sys.path.insert(0, str(src))
     import torch
 
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
+    noc = noc_timing_inputs(torch, dev)
     q, k, v = attn_inputs(torch, ATTN_CASES[0], dev)
     args = ssd_inputs(torch, SSD_CASES[0], dev)
     chunk = SSD_CASES[0][-1]
-    fns = {"flash_attention": lambda: ops.attention(q, k, v, causal=True),
+    fns = {"minplus": lambda: ops.apsp(noc["costs"], noc["iters"]),
+           "walk": lambda: ops.walk(noc["nh"], noc["f"], noc["delay"],
+                                    noc["max_hops"]),
+           "flash_attention": lambda: ops.attention(q, k, v, causal=True),
            "ssd": lambda: ops.ssd(*args, chunk=chunk, return_state=True)}
     out = {"package": str(Path(ops.__file__).resolve().parents[1])}
     for name, fn in fns.items():
-        out[name] = {"ms": time_ms(fn), "per_call_ms": time_ms_per_call(fn)}
+        out[name] = {"ms": time_ms(fn), "per_call_ms": time_ms_per_call(fn),
+                     "trace_ms": sum(r[1] for r in profiled(torch, fn)) / 10}
+    walls = [run_main_path(torch) for _ in range(2)]
+    res = walls[-1][1]
+    out["main_path"] = {"first_s": walls[0][2], "second_s": walls[1][2],
+                        "evals": res.n_evals, "calls": res.n_calls,
+                        "front": len(res.designs), "phv": res.phv()}
     return out
 
 
 def compare_kernels(other: Path) -> int:
-    """K5 and K6 of checkout ``other`` timed beside this checkout's, each
-    in a fresh process, in the order other, this, this, other."""
+    """K1, K4, K5 and K6 of checkout ``other`` timed beside this
+    checkout's, each in a fresh process, in the order other, this, this,
+    other."""
     root = Path(__file__).resolve().parent
     check((other / "src" / "repro_torch" / "csrc").is_dir(),
           f"{other}: no src/repro_torch/csrc")
@@ -465,6 +577,69 @@ def compare_kernels(other: Path) -> int:
     return 0
 
 
+def apsp_squarings(torch, ref, cost, n_iters: int) -> int:
+    """Squarings the one-launch APSP runs over the batch ``cost``: per
+    design up to and including the first that changes no bit, at most
+    ``n_iters``."""
+    total = 0
+    for c in cost:
+        d = c[None]
+        for _ in range(n_iters):
+            nxt = ref.minplus_ref(d, d)
+            total += 1
+            if torch.equal(nxt.view(torch.int32), d.view(torch.int32)):
+                break
+            d = nxt
+    return total
+
+
+def slot_traffic(torch, spec, designs, consts, dev):
+    """(B, N, N) f32 BFS traffic between the slots of each design."""
+    import numpy as np
+
+    from repro_torch.core.traffic import traffic_matrix
+
+    f_core = torch.as_tensor(traffic_matrix(spec, "BFS").astype(np.float32),
+                             device=dev)
+    perms = torch.as_tensor(np.stack([d.perm for d in designs]).astype(
+        np.int64), device=dev)
+    return (f_core[perms[:, :, None], perms[:, None, :]]
+            * (~consts.eye).float()).contiguous()
+
+
+def check_walk(torch, ops, ref, label, k4, nh, f, delay, max_hops) -> float:
+    """K4's result ``k4`` against a second run, the plain version on the
+    card (hops, delay, all_done bit-equal; util and visits within rtol
+    1e-6 where every pair arrives) and the CPU plain version (util and
+    visits bit-equal there). Returns the max |err| against the card's plain
+    version."""
+    k4b = ops.walk(nh, f, delay, max_hops)
+    plain = ref.walk_ref(nh, f, delay, max_hops)
+    cpu = ref.walk_ref(nh.cpu(), f.cpu(), delay.cpu(), max_hops)
+    torch.cuda.synchronize()
+    for a, b, name in zip(k4, k4b, ("hops", "delay", "util", "visits",
+                                    "all_done")):
+        check(torch.equal(a, b), f"walk {label}: two runs differ in {name}")
+    for i, name in ((0, "hops"), (1, "delay"), (4, "all_done")):
+        check(torch.equal(k4[i], plain[i]), f"walk {label}: {name} differs")
+    done = k4[4].bool()
+    check(bool(done.any()), f"walk {label}: no connected design")
+    err = 0.0
+    for i, name in ((2, "util"), (3, "visits")):
+        got, want = k4[i][done], plain[i][done]
+        check(torch.allclose(got, want, rtol=1e-6, atol=0.0),
+              f"walk {label}: {name} beyond rtol 1e-6")
+        check(torch.equal(got.cpu(), cpu[i][done.cpu()]),
+              f"walk {label}: {name} differs from the CPU plain version")
+        err = max(err, float((got - want).abs().max()))
+    print(f"K4 walk {label} (B={nh.shape[0]}, max_hops {max_hops}): "
+          f"hops/delay/all_done bit-equal, util/visits |err| {err:.3g} vs "
+          f"plain on the card and bit-equal to the CPU plain version, two "
+          f"runs bit-identical ({int(done.sum())}/{nh.shape[0]} designs "
+          f"connected)")
+    return err
+
+
 def random_graphs(torch, rng, bsz: int, n: int, p_edge: float, dev):
     """INF-sparse (B, N, N) f32 matrices of small integer weights."""
     import numpy as np
@@ -479,8 +654,8 @@ def main(argv: list[str]) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--compare-kernels", type=Path, metavar="DIR",
-                        help="time K5 and K6 of checkout DIR beside this "
-                             "one's, and nothing else")
+                        help="time K1, K4, K5 and K6 of checkout DIR "
+                             "beside this one's, and nothing else")
     parser.add_argument("--time-kernels", type=Path, help=argparse.SUPPRESS)
     opts = parser.parse_args(argv)
     root = Path(__file__).resolve().parent
@@ -494,7 +669,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if opts.time_kernels is not None:
-        print(json.dumps(serving_kernel_times(opts.time_kernels)))
+        print(json.dumps(kernel_times(opts.time_kernels)))
         return 0
     if opts.compare_kernels is not None:
         return compare_kernels(opts.compare_kernels)
@@ -508,7 +683,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.core.objectives import (design_cost, design_cost_np,
                                              make_consts)
     from repro_torch.core.problem import (random_design, sample_neighbor_moves,
-                                          spec_64)
+                                          spec_16, spec_64, spec_large)
     from repro_torch.core.traffic import traffic_matrix
     from repro_torch.kernels import build, ops, ref
     from repro_torch.noc import Budget, NocProblem, RunResult, named_spec, run
@@ -557,6 +732,28 @@ def main(argv: list[str]) -> int:
         check(torch.equal(out, plain),
               f"minplus differs from its plain version at B={bsz} N={n}")
         k1_err = max(k1_err, float((out - plain).abs().max()))
+    k1_launches = {}
+    for bsz, n in ((48, 64), (4, 7), (4, 33), (4, 128), (4, 129), (2, 300)):
+        for diag in ("zero", "none"):
+            a = random_graphs(torch, rng, bsz, n, 4.0 / n, dev)
+            if diag == "zero":
+                a.diagonal(dim1=1, dim2=2).zero_()
+            iters = routing.apsp_iters(n)
+            n0 = ops.KERNELS["minplus"].launches
+            out = ops.apsp(a, iters)
+            k1_launches[n] = ops.KERNELS["minplus"].launches - n0
+            again = ops.apsp(a, iters)
+            plain = ref.apsp_ref(a, iters)
+            torch.cuda.synchronize()
+            check(torch.equal(out.view(torch.int32), plain.view(torch.int32)),
+                  f"apsp differs from its plain version at B={bsz} N={n} "
+                  f"({diag} diagonal)")
+            check(torch.equal(out, again), f"apsp at N={n}: two runs differ")
+            k1_err = max(k1_err, float((out - plain).abs().max()))
+    for n, launched in k1_launches.items():
+        want = 1 if n <= ops.APSP_MAX_N else routing.apsp_iters(n)
+        check(launched == want, f"apsp at N={n}: {launched} launches, "
+              f"expected {want}")
     spec = spec_64()
     consts = make_consts(spec, "cuda")
     designs = [random_design(spec, rng) for _ in range(64)]
@@ -574,8 +771,11 @@ def main(argv: list[str]) -> int:
                              routing.next_hop_np(c_np, d_np)),
               f"next_hop of design {i} differs from next_hop_np")
     errs["minplus"] = k1_err
-    print("K1 minplus: bit-equal at B=64/N=64, N=7,33,129,300,1024; spec_64 "
-          "APSP and next_hop bit-equal to the host mirrors")
+    print("K1 minplus: bit-equal at B=64/N=64, N=7,33,129,300,1024; the APSP "
+          "bit-equal to the plain loop at B=48/N=64, N=7,33,128,129,300 with "
+          "and without a zero diagonal, two runs bit-identical, launches per "
+          f"APSP {json.dumps(k1_launches)}; spec_64 APSP and next_hop "
+          "bit-equal to the host mirrors")
 
     feat_designs = [random_design(spec, rng) for _ in range(600)]
     x_all = design_features_batch(spec, feat_designs)
@@ -633,51 +833,29 @@ def main(argv: list[str]) -> int:
     print("K3 score_block_max: same argmax (first max on ties, padding never "
           f"wins), value |err| {k3_err:.3g}")
 
-    f_core = torch.as_tensor(traffic_matrix(spec, "BFS").astype(np.float32),
-                             device=dev)
-    perms = torch.as_tensor(np.stack([d.perm for d in designs]).astype(
-        np.int64), device=dev)
-    f_slots = (f_core[perms[:, :, None], perms[:, None, :]]
-               * (~consts.eye).float()).contiguous()
+    f_slots = slot_traffic(torch, spec, designs, consts, dev)
     k4 = ops.walk(nh, f_slots, consts.link_delay, spec.max_hops)
-    k4b = ops.walk(nh, f_slots, consts.link_delay, spec.max_hops)
-    plain = ref.walk_ref(nh, f_slots, consts.link_delay, spec.max_hops)
-    cpu = ref.walk_ref(nh.cpu(), f_slots.cpu(), consts.link_delay.cpu(),
-                       spec.max_hops)
-    torch.cuda.synchronize()
-    for a, b, name in zip(k4, k4b, ("hops", "delay", "util", "visits",
-                                    "all_done")):
-        check(torch.equal(a, b), f"walk: two runs differ in {name}")
-    for i, name in ((0, "hops"), (1, "delay"), (4, "all_done")):
-        check(torch.equal(k4[i], plain[i]), f"walk: {name} differs")
-    done = k4[4].bool()
-    check(bool(done.any()), "walk: no connected design in the sample")
-    k4_err = 0.0
-    for i, name in ((2, "util"), (3, "visits")):
-        got, want = k4[i][done], plain[i][done]
-        check(torch.allclose(got, want, rtol=1e-6, atol=0.0),
-              f"walk: {name} beyond rtol 1e-6")
-        check(torch.equal(got.cpu(), cpu[i][done.cpu()]),
-              f"walk: {name} differs from the CPU plain version")
-        k4_err = max(k4_err, float((got - want).abs().max()))
+    k4_err = check_walk(torch, ops, ref, "spec_64", k4, nh, f_slots,
+                        consts.link_delay, spec.max_hops)
+    for spec_k, n_k in ((spec_16(), 16), (spec_large(), 8)):
+        c_k = make_consts(spec_k, "cuda")
+        d_k = [spec_k.mesh_design()] + [random_design(spec_k, rng)
+                                        for _ in range(n_k - 1)]
+        cost_k = design_cost(c_k, torch.as_tensor(
+            np.stack([d.adj for d in d_k]), device=dev))
+        nh_k = routing.next_hop(cost_k, routing.apsp_batched(
+            cost_k, c_k.apsp_iters))
+        f_k = slot_traffic(torch, spec_k, d_k, c_k, dev)
+        k4_err = max(k4_err, check_walk(
+            torch, ops, ref, f"N={spec_k.n_tiles}", ops.walk(
+                nh_k, f_k, c_k.link_delay, spec_k.max_hops),
+            nh_k, f_k, c_k.link_delay, spec_k.max_hops))
     errs["walk"] = k4_err
-    print(f"K4 walk: hops/delay/all_done bit-equal, util/visits |err| "
-          f"{k4_err:.3g} vs plain on the card and bit-equal to the CPU "
-          f"plain version, two runs bit-identical "
-          f"({int(done.sum())}/64 designs connected)")
 
     # ------------------------------------------------------------- phase 3
     phase("3 main path: stage on spec_64")
-    problem = NocProblem(spec=named_spec("64"), traffic="BFS", case="case5")
-    # max_local_steps=40: with the default 10 000 the first local search
-    # alone spends the 2000 evaluations and the surrogate is never queried.
-    main_cfg = {"max_local_steps": 40}
     ops.reset_launches()
-    t0 = time.perf_counter()
-    res = run(problem, "stage", budget=Budget(max_evals=2000, seed=0),
-              config=main_cfg, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    problem, res, wall = run_main_path(torch)
     main_launches = {k: n for k, n in ops.launches().items()
                      if k in NOC_KERNELS}
     for name, n in main_launches.items():
@@ -731,13 +909,21 @@ def main(argv: list[str]) -> int:
     phase("6 timing at main-path shapes")
     print(f"card: {card}")
     rows = []
-    bsz, n = 48, spec.n_tiles            # one neighbourhood of 24+24 moves
-    a = costs[:bsz].contiguous()
-    b = dist[:bsz].contiguous()
-    ms = time_ms(lambda: ops.minplus(a, b))
-    plain_ms = time_ms(lambda: ref.minplus_ref(a, b))
+    fns = {}
+    noc = noc_timing_inputs(torch, dev)
+    bsz, n = noc["nh"].shape[:2]         # one neighbourhood of 24+24 moves
+    a, iters = noc["costs"], noc["iters"]
+    fns["minplus"] = lambda: ops.apsp(a, iters)
+    ms = time_ms(fns["minplus"])
+    plain_ms = time_ms(lambda: ref.apsp_ref(a, iters))
+    squarings = apsp_squarings(torch, ref, a, iters)
     rows.append(("minplus", ms, plain_ms,
-                 *bound(3 * bsz * n * n * 4, 2 * bsz * n ** 3)))
+                 *bound(2 * bsz * n * n * 4, 2 * squarings * n ** 3,
+                        PEAK_FP32_INSTR)))
+    print(f"K1 one evaluator call's APSP, B={bsz} N={n}: {squarings} "
+          f"squarings over the batch up to each design's fixed point "
+          f"(at most {bsz * iters}); bound counts 2 FP32 instructions per "
+          f"(add, min) pair at {PEAK_FP32_INSTR:.4g}/s")
 
     x1 = torch.as_tensor(forest._normalize(x_all[:1]).astype(np.float32),
                          device=dev)
@@ -757,15 +943,21 @@ def main(argv: list[str]) -> int:
                  *bound(48 * t_count * node_bytes + 48 * 16 * 4 + 2 * 16 * 4
                         + 8, 48 * (2 * 16 + t_count * (depth + 1)))))
 
-    nh48, f48 = nh[:bsz].contiguous(), f_slots[:bsz].contiguous()
-    hop_sum = float(k4[0][:bsz].sum())
-    ms = time_ms(lambda: ops.walk(nh48, f48, consts.link_delay,
-                                  spec.max_hops))
-    plain_ms = time_ms(lambda: ref.walk_ref(nh48, f48, consts.link_delay,
-                                            spec.max_hops))
+    nh48, f48, delay = noc["nh"], noc["f"], noc["delay"]
+    max_hops = noc["max_hops"]
+    fns["walk"] = lambda: ops.walk(nh48, f48, delay, max_hops)
+    hop_sum = float(fns["walk"]()[0].sum())
+    ms = time_ms(fns["walk"])
+    plain_ms = time_ms(lambda: ref.walk_ref(nh48, f48, delay, max_hops))
+    # f32 adds: the delay along every path, and per pair one into the
+    # parent's flow, one into util, one into visits and one column-sum term.
     rows.append(("walk", ms, plain_ms,
                  *bound(bsz * n * n * 4 * 5 + n * n * 4 + bsz * n * 4
-                        + bsz * 4, 2 * hop_sum + 2 * bsz * n * n)))
+                        + bsz * 4, hop_sum + 4 * bsz * n * n,
+                        PEAK_FP32_INSTR)))
+    fns["forest_predict"] = lambda: ops.forest_predict(*nodes, x1, depth)
+    fns["score_block_max"] = lambda: ops.score_block_max(
+        *nodes, xm, xs, x48, 48, depth)
 
     kernels = []
     for name, ms, plain_ms, bound_ms, bound_by in rows:
@@ -778,13 +970,24 @@ def main(argv: list[str]) -> int:
             # No single PyTorch call computes any of these four functions.
             "library_ms": None,
         })
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.6f} ms by {bound_by}; no PyTorch call computes it)")
+        dev_ms = device_ms_per_call(torch, fns[name], NOC_SYMBOLS[name])
+        shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"{name}: {ms:.4f} ms (profiler's device time per call "
+              f"{shown}; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by "
+              f"{bound_by}; no PyTorch call computes it)")
+        if name in NOC_BAR_MS:
+            bar = NOC_BAR_MS[name]
+            met = dev_ms is not None and dev_ms <= bar
+            print(f"  {name} bar {bar} ms of device time per call: "
+                  f"{'met' if met else 'MISSED'}")
     # ------------------------------------------------------------- phase 7
     phase("7 trace of the main path")
-    trace_main_path(torch, lambda: run(
-        problem, "stage", budget=Budget(max_evals=2000, seed=0),
-        config=main_cfg, device="cuda"), wall)
+    totals = trace_main_path(torch, lambda: run_main_path(torch), wall,
+                             symbols={k: NOC_SYMBOLS[k] for k in NOC_KERNELS})
+    for name, bar in NOC_TRACE_BAR_MS.items():
+        if name in totals:
+            print(f"  {name} bar {bar} ms of device time per main path: "
+                  f"{'met' if totals[name][0] <= bar else 'MISSED'}")
 
     # ------------------------------------------------------------- phase 8
     phase("8 K5 and K6 against their plain versions")

@@ -50,10 +50,11 @@ KERNELS = {k.name: k for k in (
 
 _SIGS = {
     "minplus_launch": ("minplus", [_P, _P, _P, _I, _I, _P]),
+    "apsp_launch": ("minplus", [_P, _P, _I, _I, _I, _P]),
     "forest_predict_launch": ("forest", [_P] * 6 + [_I] * 5 + [_P]),
     "score_block_max_launch": ("forest", [_P] * 7 + [_I] * 6 + [_P] * 5),
     "forest_blocks": ("forest", [_I]),
-    "walk_launch": ("walk", [_P] * 3 + [_I] * 3 + [_P] * 6),
+    "walk_launch": ("walk", [_P] * 3 + [_I] * 3 + [_P] * 7),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F]
                                + [_I] * 2 + [_P]),
@@ -139,14 +140,27 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: Largest N whose whole APSP runs in one launch, the design's matrix in
+#: shared memory; above it one launch per squaring.
+APSP_MAX_N = 128
+
+
 def apsp(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
     """Batched APSP by ``n_iters`` min-plus squarings (K1), out of place
-    between two buffers."""
+    between two buffers. A design stops at the first squaring that changes
+    none of its entries: every later one would return the same bits."""
     if not _on_cuda(cost):
         return ref.apsp_ref(cost, n_iters)
     _check_square_batch(cost)
     if n_iters == 0:
         return cost.clone()
+    bsz, n, _ = cost.shape
+    if n <= APSP_MAX_N:
+        out = torch.empty_like(cost)
+        if bsz:
+            _launch("minplus", "apsp_launch", cost.device, cost.data_ptr(),
+                    out.data_ptr(), bsz, n, n_iters)
+        return out
     bufs = (torch.empty_like(cost), torch.empty_like(cost))
     src = cost
     for i in range(n_iters):
@@ -215,7 +229,11 @@ def walk(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
          max_hops: int):
     """Batched path walk (K4): (hops i32, delay sums, directed util,
     visits, all_done i32) for next hops nh (B, N, N) i32, slot traffic f
-    (B, N, N) f32 and wire delay (N, N) f32."""
+    (B, N, N) f32 and wire delay (N, N) f32.
+
+    On the card one call is two launches, counted as one: the walks and
+    in-tree flows per (design, destination), then util and visits per
+    (design, slot)."""
     if not _on_cuda(nh, f, delay):
         return ref.walk_ref(nh, f, delay, max_hops)
     bsz, n, _ = nh.shape
@@ -230,11 +248,15 @@ def walk(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
     util = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
     visits = torch.empty((bsz, n), dtype=torch.float32, device=dev)
     done = torch.empty(bsz, dtype=torch.int32, device=dev)
+    # (parent, flow) of every pair between the kernel's two passes, and
+    # one all-done flag per block of the first.
+    scratch = torch.empty(bsz * (2 * n * n + n), dtype=torch.int32,
+                          device=dev)
     if bsz:
         _launch("walk", "walk_launch", dev, nh.data_ptr(), f.data_ptr(),
                 delay.data_ptr(), bsz, n, max_hops, hops.data_ptr(),
                 dsum.data_ptr(), util.data_ptr(), visits.data_ptr(),
-                done.data_ptr())
+                done.data_ptr(), scratch.data_ptr())
     return hops, dsum, util, visits, done
 
 

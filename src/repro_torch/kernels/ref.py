@@ -32,10 +32,16 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def apsp_ref(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
-    """Batched APSP by ``n_iters`` min-plus squarings."""
+    """Batched APSP by ``n_iters`` min-plus squarings. It stops at the first
+    squaring that changes no bit of the batch: squaring is a function of the
+    matrix alone, so every later one would return the same bits."""
     d = cost
     for _ in range(n_iters):
-        d = minplus_ref(d, d)
+        nxt = minplus_ref(d, d)
+        fixed = torch.equal(nxt.view(torch.int32), d.view(torch.int32))
+        d = nxt
+        if fixed:
+            break
     return d
 
 

@@ -17,7 +17,8 @@ from repro_torch.core.evaluate import Evaluator
 from repro_torch.core.features import design_features_batch
 from repro_torch.core.forest import RegressionForest
 from repro_torch.core.objectives import design_cost, make_consts
-from repro_torch.core.problem import random_design, spec_16, spec_64
+from repro_torch.core.problem import (random_design, spec_16, spec_64,
+                                      spec_large)
 from repro_torch.core.traffic import traffic_matrix
 from repro_torch.kernels import ops, ref
 
@@ -53,6 +54,28 @@ def test_minplus_bit_equal_plain(dev, n):
     assert torch.equal(ops.minplus(at, at), ref.minplus_ref(at, at))
 
 
+@pytest.mark.parametrize("diag", ["zero", "none"])
+@pytest.mark.parametrize("n", [7, 33, 64, 129, 300])
+def test_apsp_kernel_bit_equal_plain(dev, n, diag):
+    """One launch per APSP up to N = 128 (early exit per design), one per
+    squaring above; bit-equal to the plain loop either way, also without a
+    zero diagonal."""
+    rng = np.random.default_rng(n)
+    a = rng.integers(1, 20, size=(3, n, n)).astype(np.float32)
+    a[rng.random(a.shape) > 4.0 / n] = 1e9
+    if diag == "zero":
+        a[:, np.arange(n), np.arange(n)] = 0.0
+    at = torch.as_tensor(a, device=dev)
+    iters = routing.apsp_iters(n)
+    n0 = ops.KERNELS["minplus"].launches
+    got = ops.apsp(at, iters)
+    launched = ops.KERNELS["minplus"].launches - n0
+    assert launched == (1 if n <= ops.APSP_MAX_N else iters)
+    want = ref.apsp_ref(at, iters)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, ops.apsp(at, iters))
+
+
 def test_apsp_and_next_hop_bit_equal_host(dev):
     spec = spec_64()
     c, cost, dist, nh, _ = _tables(spec, dev)
@@ -63,16 +86,24 @@ def test_apsp_and_next_hop_bit_equal_host(dev):
                               routing.next_hop_np(cost[i].cpu().numpy(), d_np))
 
 
-def test_walk_bit_equal_cpu_plain(dev):
-    spec = spec_16()
+@pytest.mark.parametrize("spec_fn", [spec_16, spec_64, spec_large])
+def test_walk_bit_equal_cpu_plain(dev, spec_fn):
+    """K4 twice bit-identical and bit-equal to the CPU plain version, at
+    spec_16, spec_64 and spec_large (N = 256, max_hops 48); one counted
+    call per walk."""
+    spec = spec_fn()
     c, _, _, nh, perm = _tables(spec, dev)
     f = torch.as_tensor(traffic_matrix(spec, "BFS").astype(np.float32),
                         device=dev)
     fs = (f[perm[:, :, None], perm[:, None, :]] * (~c.eye).float()).contiguous()
+    n0 = ops.KERNELS["walk"].launches
     got = ops.walk(nh, fs, c.link_delay, spec.max_hops)
+    assert ops.KERNELS["walk"].launches == n0 + 1
+    again = ops.walk(nh, fs, c.link_delay, spec.max_hops)
     cpu = ref.walk_ref(nh.cpu(), fs.cpu(), c.link_delay.cpu(), spec.max_hops)
-    for a, b in zip(got, cpu):
-        assert torch.equal(a.cpu(), b)
+    for a, b, w in zip(got, again, cpu):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), w)
 
 
 def test_forest_and_score_against_plain(dev):
@@ -104,7 +135,7 @@ def test_evaluator_card_matches_cpu(dev):
     before = ops.launches()
     gpu = Evaluator(spec, f, device="cuda").batch(designs)
     after = ops.launches()
-    assert after["minplus"] > before["minplus"]
+    assert after["minplus"] == before["minplus"] + 1
     assert after["walk"] == before["walk"] + 1
     cpu = Evaluator(spec, f, device="cpu").batch(designs)
     np.testing.assert_allclose(gpu, cpu, rtol=1e-5, atol=0)

@@ -19,6 +19,7 @@ from repro.core.objectives import design_cost_np as ref_design_cost_np
 from repro.core.problem import (random_design, spec_16, spec_64,
                                 spec_tiny)
 from repro.kernels.link_util import walk_accumulate
+from repro.kernels.minplus import apsp as pallas_apsp
 from repro.kernels.minplus import minplus as pallas_minplus
 from repro_torch.core import routing
 from repro_torch.core.objectives import design_cost_np
@@ -36,6 +37,51 @@ def _sparse(rng, shape, p_edge=0.3, zero_diag=True):
         idx = np.arange(shape[-1])
         w[..., idx, idx] = 0.0
     return w
+
+
+def _apsp_fixed_loop(d, n_iters):
+    for _ in range(n_iters):
+        d = ref.minplus_ref(d, d)
+    return d
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n,p_edge,diag", [
+    (7, 0.3, "zero"), (33, 0.1, "zero"), (64, 0.05, "zero"),
+    (129, 0.03, "zero"), (33, 0.1, "none"), (64, 0.05, "half")])
+def test_apsp_early_exit_equals_fixed_loop(n, p_edge, diag):
+    """The plain APSP stops at the first squaring that changes nothing (as
+    the one-launch kernel does per design): bit-equal to the fixed
+    ``n_iters`` loop on INF-sparse graphs, odd N, and graphs without a
+    zero diagonal (or with one on half the nodes)."""
+    rng = np.random.default_rng(n)
+    w = _sparse(rng, (3, n, n), p_edge, zero_diag=diag == "zero")
+    if diag == "half":
+        idx = np.arange(0, n, 2)
+        w[:, idx, idx] = 0.0
+    cost = torch.from_numpy(w)
+    iters = routing.apsp_iters(n)
+    got = ops.apsp(cost, iters)
+    assert torch.equal(_bits(got), _bits(_apsp_fixed_loop(cost, iters)))
+    if diag != "zero":
+        # The reference's dense jnp min-plus keeps the true minimum too.
+        for i in range(w.shape[0]):
+            d = jnp.asarray(w[i])
+            for _ in range(iters):
+                d = ref_routing.min_plus(d, d)
+            assert np.array_equal(got[i].numpy(), np.asarray(d))
+        return
+    # A converged APSP with a zero diagonal is a fixed point, so the early
+    # exit did stop before the last squaring.
+    assert torch.equal(ref.minplus_ref(got, got), got)
+    for i in range(w.shape[0]):
+        assert np.array_equal(got[i].numpy(), routing.apsp_np(w[i], iters))
+    if n <= 33:
+        assert np.array_equal(got.numpy(), np.asarray(
+            pallas_apsp(jnp.asarray(w), iters, interpret=True)))
 
 
 def _designs(spec, n, seed):
@@ -149,51 +195,100 @@ def test_walk_matches_pallas_link_util_interpret():
                                    rtol=1e-6)
 
 
-def _walk_loop_oracle(nh, f, max_hops):
-    """Scalar loops in the CUDA kernel's order (csrc/walk.cu): in-tree
-    flows pulled from children in ascending order, level by level; util
-    and visits accumulated over destinations in ascending order."""
+def _walk_two_pass_oracle(nh, f, delay, max_hops):
+    """Scalar loops in the order of the CUDA kernel's two passes
+    (csrc/walk.cu). Pass 1 per destination d: walks through the column,
+    sibling lists (next higher v with the same parent, lowest child first),
+    leaves-in levels over the child lists, and (parent, flow) into a
+    scratch. Pass 2 per slot u: util row and visits over d ascending from
+    that scratch, then the column sum of f. The group of destinations a
+    kernel block holds only sets how many empty levels it runs."""
     n = nh.shape[0]
-    hops = np.zeros((n, n), np.int64)
-    for s in range(n):
-        for d in range(n):
-            cur, h = s, 0
-            while h < max_hops and cur != d:
-                cur, h = nh[cur, d], h + 1
-            hops[s, d] = h
-    util = np.zeros((n, n), np.float32)
-    vis = np.zeros(n, np.float32)
+    hops = np.zeros((n, n), np.int32)
+    dsum = np.zeros((n, n), np.float32)
+    parent_t = np.zeros((n, n), np.int64)           # [d][u]
+    flow_t = np.zeros((n, n), np.float32)           # [d][u]
+    all_done = True
     for d in range(n):
-        flow = f[:, d].copy()
-        for level in range(hops[:, d].max() - 1, 0, -1):
-            for u in np.flatnonzero(hops[:, d] == level):
-                acc = flow[u]
-                for v in range(n):
-                    if nh[v, d] == u and hops[v, d] == level + 1:
-                        acc = np.float32(acc + flow[v])
-                flow[u] = acc
         for u in range(n):
-            if u != d:
-                util[u, nh[u, d]] = np.float32(util[u, nh[u, d]] + flow[u])
-                vis[u] = np.float32(vis[u] + flow[u])
-    col = np.zeros(n, np.float32)
-    for s in range(n):
-        col = (col + f[s]).astype(np.float32)
-    return util, (vis + col).astype(np.float32)
+            cur, h, acc = u, 0, np.float32(0.0)
+            while h < max_hops and cur != d:
+                nxt = nh[cur, d]
+                acc = np.float32(acc + delay[cur, nxt])
+                h, cur = h + 1, nxt
+            all_done &= bool(cur == d)
+            hops[u, d], dsum[u, d] = h, acc
+        col = nh[:, d]
+        first = np.full(n, -1)
+        sib = np.full(n, -1)
+        for u in range(n):
+            later = np.flatnonzero(col[u + 1:] == col[u])
+            sib[u] = u + 1 + later[0] if later.size else -1
+            if not (col[:u] == col[u]).any():
+                first[col[u]] = u
+        flow = f[:, d].copy()
+        h = hops[:, d]
+        for level in range(h.max() - 1, 0, -1):
+            for u in np.flatnonzero(h == level):
+                acc, v = flow[u], first[u]
+                while v >= 0:
+                    if h[v] == level + 1:
+                        acc = np.float32(acc + flow[v])
+                    v = sib[v]
+                flow[u] = acc
+        parent_t[d], flow_t[d] = col, flow
+    util = np.zeros((n, n), np.float32)
+    visits = np.zeros(n, np.float32)
+    for u in range(n):
+        vis = np.float32(0.0)
+        for d in range(n):
+            if d != u:
+                p = parent_t[d, u]
+                util[u, p] = np.float32(util[u, p] + flow_t[d, u])
+                vis = np.float32(vis + flow_t[d, u])
+        colsum = np.float32(0.0)
+        for s in range(n):
+            colsum = np.float32(colsum + f[s, u])
+        visits[u] = np.float32(vis + colsum)
+    return hops, dsum, util, visits, all_done
 
 
-def test_walk_plain_version_sums_in_kernel_order():
-    """The plain walk's util/visits are bit-equal to scalar loops in the
-    CUDA kernel's summation order — what makes card and CPU agree."""
-    spec = spec_16()
-    nh, f, delay = _walk_inputs(spec, 4, n_designs=2)
-    _, _, util, visits, _ = ref.walk_ref(
-        torch.from_numpy(nh), torch.from_numpy(f), torch.from_numpy(delay),
-        spec.max_hops)
+def _disconnected_walk_inputs():
+    """spec_tiny with only its vertical TSVs, f = 1 everywhere."""
+    spec = spec_tiny()
+    adj = np.zeros_like(spec.mesh_design().adj)
+    cost = design_cost_np(spec, adj)
+    _, nh = routing.routing_tables_batched(
+        torch.from_numpy(cost[None]), routing.apsp_iters(spec.n_tiles))
+    return (nh.numpy(), np.ones((1,) + cost.shape, np.float32),
+            spec.link_delay.astype(np.float32), spec.max_hops)
+
+
+@pytest.mark.parametrize("case", ["16", "tiny", "64", "disconnected", "cut"])
+def test_walk_plain_version_sums_in_kernel_order(case):
+    """The plain walk's outputs are bit-equal to scalar loops in the CUDA
+    kernel's two-pass order — what makes card and CPU agree — on spec_16,
+    spec_tiny, spec_64, a disconnected design, and spec_16 walks cut at 2
+    hops (pairs left unreached): hops, delays, util, visits and
+    all_done."""
+    if case == "disconnected":
+        nh, f, delay, max_hops = _disconnected_walk_inputs()
+    elif case == "cut":
+        nh, f, delay = _walk_inputs(spec_16(), 7, n_designs=2)
+        max_hops = 2
+    else:
+        spec = {"tiny": spec_tiny, "16": spec_16, "64": spec_64}[case]()
+        nh, f, delay = _walk_inputs(spec, 4, n_designs=2)
+        max_hops = spec.max_hops
+    got = ref.walk_ref(torch.from_numpy(nh), torch.from_numpy(f),
+                       torch.from_numpy(delay), max_hops)
     for i in range(nh.shape[0]):
-        u, v = _walk_loop_oracle(nh[i], f[i], spec.max_hops)
-        assert np.array_equal(util[i].numpy(), u)
-        assert np.array_equal(visits[i].numpy(), v)
+        want = _walk_two_pass_oracle(nh[i], f[i], delay, max_hops)
+        for a, b in zip(got[:4], want[:4]):
+            assert np.array_equal(a[i].numpy(), b)
+        assert bool(got[4][i]) == want[4]
+    if case == "cut":
+        assert not bool(got[4].any())
 
 
 def test_walk_disconnected_design_matches_reference():
