@@ -13,7 +13,10 @@ each raising on failure:
      instructions (HMMA, HGMMA) in each library's SASS, which must be there
      for K5 and K6;
   2. every kernel against its plain PyTorch version on the card (and the
-     host numpy mirrors where the port has them);
+     host numpy mirrors where the port has them); K2 and K3 bit-equal on
+     forests of 24, 10 and 1 trees, of depth 0, and one large enough to
+     take the L2 route, at B = 1 to 1500, with ties at lane, block and
+     cluster edges and ten back-to-back calls;
   3. the main path: MOO-STAGE on spec_64 under the paper's BFS traffic,
      case5, 2000 evaluations, through ``repro_torch.noc.run`` on the card,
      with the launches of each kernel counted over that run alone;
@@ -22,7 +25,8 @@ each raising on failure:
   6. each kernel timed at its main-path shapes beside its plain version and
      its bound, printed as one JSON ``kernels`` line; K1–K4 also by the
      profiler's device time per call, which below ~20 us is the honest
-     reading (events then time the wrapper's host work);
+     reading (events then time the wrapper's host work); K3 checked to run
+     one kernel per call, and K2/K3 probed at every cluster size and route;
   7. one more main-path run under torch.profiler: device busy time, the
      device's idle share, the kernels that take the most time, and each
      NoC kernel's device time and launches in that run;
@@ -46,18 +50,20 @@ non-zero before it.
 
     python3 chip_smoke.py --compare-kernels DIR
 
-times K1 (one evaluator call's APSP) and K4 at phase 6's shapes and K5 and
-K6 at the serving shapes, from another checkout ``DIR`` (for example the
-parent commit, unpacked with ``git archive``) beside this one's, each in a
-fresh process, in the order DIR, this, this, DIR: device time over 10
-back-to-back calls, one call between two events, and the profiler's device
-time per call. Each tree builds its NoC inputs from the same seed through
-its own ``routing`` and ``objectives``, then runs phase 3's main path twice
-(wall seconds, front and PHV).
+times K1 (one evaluator call's APSP), K2, K3 and K4 at phase 6's shapes
+and K5 and K6 at the serving shapes, from another checkout ``DIR`` (for
+example the parent commit, unpacked with ``git archive``) beside this
+one's, each in a fresh process, in the order DIR, this, this, DIR: device
+time over 10 back-to-back calls, one call between two events, and the
+profiler's device time per call (with the kernels per call). Each tree
+builds its NoC inputs and its forest from the same seed through its own
+``routing``, ``objectives`` and ``forest``, then runs phase 3's main path
+twice (wall seconds, front and PHV).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -84,13 +90,14 @@ NOC_KERNELS = ("minplus", "forest_predict", "score_block_max", "walk")
 #: The CUDA functions behind each NoC wrapper, as the profiler names them.
 NOC_SYMBOLS = {
     "minplus": ("apsp_kernel", "minplus_kernel"),
-    "forest_predict": ("forest_predict_kernel",),
-    "score_block_max": ("score_block_kernel", "score_fold_kernel"),
+    "forest_predict": ("forest_predict_cluster_kernel",),
+    "score_block_max": ("score_block_max_cluster_kernel",),
     "walk": ("walk_tree_kernel", "walk_util_kernel"),
 }
 #: The redesigned NoC kernels' bars, in ms of device time per call at
 #: phase 6's shapes, and over the phase 7 run of the main path.
-NOC_BAR_MS = {"minplus": 0.02, "walk": 0.05}
+NOC_BAR_MS = {"minplus": 0.02, "walk": 0.05, "forest_predict": 0.004,
+              "score_block_max": 0.006}
 NOC_TRACE_BAR_MS = {"minplus": 1.5, "walk": 3.0}
 LLM_KERNELS = ("flash_attention", "ssd")
 
@@ -521,12 +528,198 @@ def noc_timing_inputs(torch, dev, bsz: int = 48) -> dict:
             "delay": consts.link_delay, "max_hops": spec.max_hops}
 
 
+def forest_inputs(torch, dev) -> dict:
+    """Phases 2 and 6's forest, through the ``repro_torch`` on ``sys.path``:
+    the spec_64 features of 600 random designs from seed 0, labels on the
+    scale of the main path's (PHVs in (0, 1)), 24 trees fitted on the first
+    400 rows; x1 (row 0, normalized) and x48 (48 raw rows), xm and xs."""
+    import numpy as np
+
+    from repro_torch.core.features import design_features_batch
+    from repro_torch.core.forest import RegressionForest
+    from repro_torch.core.problem import random_design, spec_64
+
+    spec = spec_64()
+    rng = np.random.default_rng(0)
+    x_all = design_features_batch(spec, [random_design(spec, rng)
+                                         for _ in range(600)])
+    z = (x_all - x_all.mean(0)) / (x_all.std(0) + 1e-9)
+    y_all = 1.0 / (1.0 + np.exp(-(z @ rng.normal(size=z.shape[1]) / 4.0)))
+    forest = RegressionForest(seed=0, device=dev.type).fit(x_all[:400],
+                                                            y_all[:400])
+
+    def on_card(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    return {"x_all": x_all, "y_all": y_all, "forest": forest,
+            "x1": on_card(forest._normalize(x_all[:1])),
+            "x48": on_card(x_all[:48]), "xm": on_card(forest._xm),
+            "xs": on_card(forest._xs)}
+
+
+def forest_calls(torch, ops, fi) -> dict:
+    """K2 at B = 1 and K3 at B = 48 on phase 6's forest, as the main path
+    of the tree that ``ops`` comes from calls them: on the packed forest
+    where the tree has one, else on the four forest tensors."""
+    forest, x1, x48, xm, xs = (fi[k] for k in ("forest", "x1", "x48", "xm",
+                                               "xs"))
+    if hasattr(ops, "pack_forest"):
+        pf = forest.packed()
+        out = torch.empty(2, dtype=torch.int32, device=x48.device)
+        return {"forest_predict": lambda: ops.forest_predict_packed(pf, x1),
+                "score_block_max": lambda: ops.score_block_max_packed(
+                    pf, xm, xs, x48, 48, out)}
+    nodes = forest.device_nodes()
+    depth = forest._flat["depth"]
+    return {"forest_predict": lambda: ops.forest_predict(*nodes, x1, depth),
+            "score_block_max": lambda: ops.score_block_max(
+                *nodes, xm, xs, x48, 48, depth)}
+
+
+#: Rows made equal to the best row in phase 2's tie checks: across a
+#: lane's rows, a block's edge, a cluster's and the last cluster's.
+TIE_ROWS = ((3, 35), (63, 64), (127, 128), (10, 130), (64, 65, 199),
+            (1499, 1400, 700))
+
+
+def forest_kernels_vs_plain(torch, ops, ref, dev, fi, rng) -> None:
+    """Phase 2's K2 and K3 checks: bit-equal to their plain versions on
+    the card on five forests (24, 10 and 1 trees, depth 0, and one deep
+    enough for the L2 route) at B = 1, 7, 48, 128, 1500 and three n_real
+    each; the first max on ties; ten back-to-back calls bit-identical."""
+    import numpy as np
+
+    from repro_torch.core.features import design_features_batch
+    from repro_torch.core.forest import RegressionForest
+    from repro_torch.core.problem import random_design, spec_64
+
+    x_all, y_all = fi["x_all"], fi["y_all"]
+    forests = {"T=24": fi["forest"]}
+    for name, kw in (("T=10", dict(n_trees=10)), ("T=1", dict(n_trees=1)),
+                     ("depth 0", dict(max_depth=0))):
+        forests[name] = RegressionForest(seed=0, device=dev.type, **kw).fit(
+            x_all[:400], y_all[:400])
+    spec = spec_64()
+    x_big = design_features_batch(spec, [random_design(spec, rng)
+                                         for _ in range(6000)])
+    forests["L2 route"] = RegressionForest(
+        seed=0, device=dev.type, max_depth=16, min_leaf=1).fit(
+            x_big, x_big[:, 0] + rng.normal(size=6000))
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+
+    def k3_matches(pf, xm, xs, x, n_real, label):
+        ops.score_block_max_packed(pf, xm, xs, x, n_real, out)
+        v, j = ref.score_block_max_ref(*pf.plain, xm, xs, x, n_real,
+                                       pf.depth)
+        check(int(out[1]) == int(j)
+              and int(out[0]) == int(v.view(torch.int32)),
+              f"score_block_max {label} n_real={n_real}: "
+              f"({int(out[1])}, {float(out.view(torch.float32)[0])}) vs "
+              f"plain ({int(j)}, {float(v)})")
+
+    for name, forest in forests.items():
+        pf = forest.packed()
+        check(pf.route == ("l2" if name == "L2 route" else "smem"),
+              f"forest {name}: route {pf.route}")
+        xm = torch.as_tensor(forest._xm.astype(np.float32), device=dev)
+        xs = torch.as_tensor(forest._xs.astype(np.float32), device=dev)
+        for bsz in (1, 7, 48, 128, 1500):
+            xq = x_all[rng.integers(0, 600, size=bsz)] * (
+                1 + 0.05 * rng.normal(size=(bsz, x_all.shape[1])))
+            xn = torch.as_tensor(forest._normalize(xq).astype(np.float32),
+                                 device=dev)
+            got = ops.forest_predict_packed(pf, xn)
+            check(torch.equal(got, ref.forest_predict_ref(*pf.plain, xn,
+                                                          pf.depth)),
+                  f"forest_predict {name} B={bsz}: differs from plain")
+            if name == "T=24":
+                e = float(np.abs(got.cpu().numpy()
+                                 - forest.predict(xq, backend="numpy")).max())
+                check(e <= 1e-6, f"forest_predict B={bsz}: {e} vs the f64 "
+                      f"numpy oracle")
+            x = torch.as_tensor(xq.astype(np.float32), device=dev)
+            for n_real in sorted({1, max(1, bsz - 5), bsz}):
+                k3_matches(pf, xm, xs, x, n_real, f"{name} B={bsz}")
+        print(f"K2/K3 forest {name} (T={pf.n_trees}, M={pf.records.shape[1]}"
+              f", depth {pf.depth}, cluster {pf.cluster}, route {pf.route}): "
+              f"bit-equal to plain at B=1,7,48,128,1500")
+
+    forest = forests["T=24"]
+    pf = forest.packed()
+    nodes = forest.device_nodes()
+    xm, xs = fi["xm"], fi["xs"]
+    for rows in TIE_ROWS:
+        bsz = 1500 if max(rows) >= 200 else 200
+        x = torch.as_tensor(x_all[rng.integers(0, 600, size=bsz)]
+                            .astype(np.float32), device=dev)
+        vals = ref.forest_predict_ref(*pf.plain, (x - xm) / xs, pf.depth)
+        j0 = int(torch.argmax(vals))
+        for r in rows:
+            x[r] = x[j0]
+        vals = ref.forest_predict_ref(*pf.plain, (x - xm) / xs, pf.depth)
+        first = int(torch.nonzero(vals == vals.max())[0])
+        ops.score_block_max_packed(pf, xm, xs, x, bsz, out)
+        check(int(out[1]) == first, f"tie at rows {rows}: argmax "
+              f"{int(out[1])}, first max {first}")
+        k3_matches(pf, xm, xs, x, bsz, f"tie {rows}")
+        v, j = ops.score_block_max(*nodes, xm, xs, x, bsz, pf.depth)
+        check(int(j) == first, f"tie at rows {rows}: the four-tensor "
+              f"wrapper gives {int(j)}")
+    x = torch.as_tensor(x_all[rng.integers(0, 600, size=1500)]
+                        .astype(np.float32), device=dev)
+    xn = (x - xm) / xs
+    runs = [(ops.score_block_max_packed(
+        pf, xm, xs, x, 1500, torch.empty(2, dtype=torch.int32, device=dev)),
+        ops.forest_predict_packed(pf, xn)) for _ in range(10)]
+    check(all(torch.equal(a, runs[0][0]) and torch.equal(b, runs[0][1])
+              for a, b in runs), "ten back-to-back K2/K3 calls differ")
+    check(torch.equal(ops.forest_predict(*nodes, xn, pf.depth), runs[0][1]),
+          "the four-tensor forest_predict differs from the packed one")
+    print(f"K3: first max on ties at rows {list(TIE_ROWS)}; ten back-to-back "
+          f"K2/K3 calls at B=1500 bit-identical")
+
+
+def forest_design_probe(torch, ops, ref, fi) -> None:
+    """K2 and K3 on phase 6's forest with the cluster and route set by
+    hand (the wrapper picks them from the shape): bit-equal to the plain
+    versions, and the profiler's device time per call of each."""
+    pf = fi["forest"].packed()
+    x1, x48, xm, xs = fi["x1"], fi["x48"], fi["xm"], fi["xs"]
+    out = torch.empty(2, dtype=torch.int32, device=x48.device)
+    want2 = ref.forest_predict_ref(*pf.plain, x1, pf.depth)
+    v, j = ref.score_block_max_ref(*pf.plain, xm, xs, x48, 48, pf.depth)
+    for cluster in (8, 4, 2, 1):
+        for route in ("smem", "l2"):
+            alt = dataclasses.replace(pf, cluster=min(cluster, pf.n_trees),
+                                      route=route)
+            check(torch.equal(ops.forest_predict_packed(alt, x1), want2),
+                  f"K2 cluster {cluster} {route}: differs from plain")
+            ops.score_block_max_packed(alt, xm, xs, x48, 48, out)
+            check(int(out[1]) == int(j)
+                  and int(out[0]) == int(v.view(torch.int32)),
+                  f"K3 cluster {cluster} {route}: differs from plain")
+            k2 = device_ms_per_call(
+                torch, lambda: ops.forest_predict_packed(alt, x1),
+                NOC_SYMBOLS["forest_predict"])
+            k3 = device_ms_per_call(
+                torch, lambda: ops.score_block_max_packed(alt, xm, xs, x48,
+                                                          48, out),
+                NOC_SYMBOLS["score_block_max"])
+            shown = ["not measured" if t is None else f"{t:.4f} ms"
+                     for t in (k2, k3)]
+            chosen = (alt.cluster, route) == (pf.cluster, pf.route)
+            print(f"  probe cluster {alt.cluster} route {route}"
+                  f"{' (chosen)' if chosen else ''}: K2 B=1 {shown[0]}, "
+                  f"K3 B=48 {shown[1]} of device time per call")
+
+
 def kernel_times(src: Path) -> dict:
-    """K1 and K4 at phase 6's shapes and K5 and K6 at phase 10's, of the
-    package under ``src``: device time (``time_ms``), one call between two
-    events (``time_ms_per_call``) and the profiler's device time per call
-    (all of the call's kernels); then two runs of the main path (wall
-    seconds, and the second run's accounting, front and PHV)."""
+    """K1, K2, K3 and K4 at phase 6's shapes and K5 and K6 at phase 10's,
+    of the package under ``src``: device time (``time_ms``), one call
+    between two events (``time_ms_per_call``), the profiler's device time
+    per call (all of the call's kernels) and its kernels per call; then two
+    runs of the main path (wall seconds, and the second run's accounting,
+    front and PHV)."""
     sys.path.insert(0, str(src))
     import torch
 
@@ -538,14 +731,17 @@ def kernel_times(src: Path) -> dict:
     args = ssd_inputs(torch, SSD_CASES[0], dev)
     chunk = SSD_CASES[0][-1]
     fns = {"minplus": lambda: ops.apsp(noc["costs"], noc["iters"]),
+           **forest_calls(torch, ops, forest_inputs(torch, dev)),
            "walk": lambda: ops.walk(noc["nh"], noc["f"], noc["delay"],
                                     noc["max_hops"]),
            "flash_attention": lambda: ops.attention(q, k, v, causal=True),
            "ssd": lambda: ops.ssd(*args, chunk=chunk, return_state=True)}
     out = {"package": str(Path(ops.__file__).resolve().parents[1])}
     for name, fn in fns.items():
+        rows = profiled(torch, fn)
         out[name] = {"ms": time_ms(fn), "per_call_ms": time_ms_per_call(fn),
-                     "trace_ms": sum(r[1] for r in profiled(torch, fn)) / 10}
+                     "trace_ms": sum(r[1] for r in rows) / 10,
+                     "kernels_per_call": sum(r[2] for r in rows) / 10}
     walls = [run_main_path(torch) for _ in range(2)]
     res = walls[-1][1]
     out["main_path"] = {"first_s": walls[0][2], "second_s": walls[1][2],
@@ -555,9 +751,8 @@ def kernel_times(src: Path) -> dict:
 
 
 def compare_kernels(other: Path) -> int:
-    """K1, K4, K5 and K6 of checkout ``other`` timed beside this
-    checkout's, each in a fresh process, in the order other, this, this,
-    other."""
+    """K1–K6 of checkout ``other`` timed beside this checkout's, each in a
+    fresh process, in the order other, this, this, other."""
     root = Path(__file__).resolve().parent
     check((other / "src" / "repro_torch" / "csrc").is_dir(),
           f"{other}: no src/repro_torch/csrc")
@@ -654,8 +849,8 @@ def main(argv: list[str]) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--compare-kernels", type=Path, metavar="DIR",
-                        help="time K1, K4, K5 and K6 of checkout DIR "
-                             "beside this one's, and nothing else")
+                        help="time K1-K6 of checkout DIR beside this "
+                             "one's, and nothing else")
     parser.add_argument("--time-kernels", type=Path, help=argparse.SUPPRESS)
     opts = parser.parse_args(argv)
     root = Path(__file__).resolve().parent
@@ -678,8 +873,6 @@ def main(argv: list[str]) -> int:
 
     from repro_torch.core import routing
     from repro_torch.core.evaluate import Evaluator
-    from repro_torch.core.features import design_features_batch
-    from repro_torch.core.forest import RegressionForest
     from repro_torch.core.objectives import (design_cost, design_cost_np,
                                              make_consts)
     from repro_torch.core.problem import (random_design, sample_neighbor_moves,
@@ -777,61 +970,9 @@ def main(argv: list[str]) -> int:
           f"APSP {json.dumps(k1_launches)}; spec_64 APSP and next_hop "
           "bit-equal to the host mirrors")
 
-    feat_designs = [random_design(spec, rng) for _ in range(600)]
-    x_all = design_features_batch(spec, feat_designs)
-    # Labels on the scale of the main path's (PHVs in (0, 1)): the 1e-6
-    # tolerance is about 8 f32 ulps there.
-    z = (x_all - x_all.mean(0)) / (x_all.std(0) + 1e-9)
-    y_all = 1.0 / (1.0 + np.exp(-(z @ rng.normal(size=z.shape[1]) / 4.0)))
-    forest = RegressionForest(seed=0, device="cuda").fit(x_all[:400],
-                                                          y_all[:400])
-    nodes = forest.device_nodes()
-    depth = forest._flat["depth"]
-    k2_err = 0.0
-    for bsz in (1, 7, 128, 1500):
-        xq = x_all[rng.integers(0, 600, size=bsz)] * (
-            1 + 0.05 * rng.normal(size=(bsz, x_all.shape[1])))
-        xn = torch.as_tensor(forest._normalize(xq).astype(np.float32),
-                             device=dev)
-        out = ops.forest_predict(*nodes, xn, depth)
-        plain = ref.forest_predict_ref(*nodes, xn, depth)
-        oracle = forest.predict(xq, backend="numpy")
-        e_plain = float((out - plain).abs().max())
-        e_oracle = float(np.abs(out.cpu().numpy() - oracle).max())
-        check(e_plain <= 1e-6 and e_oracle <= 1e-6,
-              f"forest_predict at B={bsz}: {e_plain} vs plain, "
-              f"{e_oracle} vs numpy oracle")
-        k2_err = max(k2_err, e_plain)
-    errs["forest_predict"] = k2_err
-    print(f"K2 forest_predict: max |err| {k2_err:.3g} vs plain, <= 1e-6 vs "
-          f"the f64 oracle at B=1,7,128,1500 (T={forest.n_fitted_trees}, "
-          f"depth {depth})")
-
-    xm = torch.as_tensor(forest._xm.astype(np.float32), device=dev)
-    xs = torch.as_tensor(forest._xs.astype(np.float32), device=dev)
-    k3_err = 0.0
-    for bsz, n_real, tie in ((48, 48, False), (48, 40, False),
-                             (200, 170, False), (200, 200, True)):
-        x = torch.as_tensor(x_all[rng.integers(0, 600, size=bsz)]
-                            .astype(np.float32), device=dev)
-        if tie:
-            vals = ref.forest_predict_ref(*nodes, (x - xm) / xs, depth)
-            j0 = int(torch.argmax(vals))
-            for k in (j0 + 37, j0 + 3, max(j0 - 40, 0)):
-                x[min(k, bsz - 1)] = x[j0]
-        v, j = ops.score_block_max(*nodes, xm, xs, x, n_real, depth)
-        pv, pj = ref.score_block_max_ref(*nodes, xm, xs, x, n_real, depth)
-        check(int(j) == int(pj) and abs(float(v) - float(pv)) <= 1e-6,
-              f"score_block_max at B={bsz}, n_real={n_real}: "
-              f"({int(j)}, {float(v)}) vs plain ({int(pj)}, {float(pv)})")
-        if tie:
-            vals = ref.forest_predict_ref(*nodes, (x - xm) / xs, depth)
-            first = int(torch.nonzero(vals == vals.max())[0])
-            check(int(j) == first, f"tie: argmax {int(j)}, first max {first}")
-        k3_err = max(k3_err, abs(float(v) - float(pv)))
-    errs["score_block_max"] = k3_err
-    print("K3 score_block_max: same argmax (first max on ties, padding never "
-          f"wins), value |err| {k3_err:.3g}")
+    fi = forest_inputs(torch, dev)
+    forest_kernels_vs_plain(torch, ops, ref, dev, fi, rng)
+    errs["forest_predict"] = errs["score_block_max"] = 0.0   # bit-equal
 
     f_slots = slot_traffic(torch, spec, designs, consts, dev)
     k4 = ops.walk(nh, f_slots, consts.link_delay, spec.max_hops)
@@ -925,23 +1066,35 @@ def main(argv: list[str]) -> int:
           f"(at most {bsz * iters}); bound counts 2 FP32 instructions per "
           f"(add, min) pair at {PEAK_FP32_INSTR:.4g}/s")
 
-    x1 = torch.as_tensor(forest._normalize(x_all[:1]).astype(np.float32),
-                         device=dev)
-    t_count = forest.n_fitted_trees
+    pf = fi["forest"].packed()
+    x1, x48, xm, xs = fi["x1"], fi["x48"], fi["xm"], fi["xs"]
+    t_count, depth = pf.n_trees, pf.depth
     node_bytes = 12 * depth + 4          # thr + feat + child per level, leaf
-    ms = time_ms(lambda: ops.forest_predict(*nodes, x1, depth))
-    plain_ms = time_ms(lambda: ref.forest_predict_ref(*nodes, x1, depth))
+    fns.update(forest_calls(torch, ops, fi))
+    ms = time_ms(fns["forest_predict"])
+    plain_ms = time_ms(lambda: ref.forest_predict_ref(*pf.plain, x1, depth))
     rows.append(("forest_predict", ms, plain_ms,
                  *bound(t_count * node_bytes + 16 * 4 + 4,
                         t_count * (depth + 1))))
-
-    x48 = torch.as_tensor(x_all[:48].astype(np.float32), device=dev)
-    ms = time_ms(lambda: ops.score_block_max(*nodes, xm, xs, x48, 48, depth))
-    plain_ms = time_ms(lambda: ref.score_block_max_ref(*nodes, xm, xs, x48,
-                                                       48, depth))
+    ms = time_ms(fns["score_block_max"])
+    plain_ms = time_ms(lambda: ref.score_block_max_ref(*pf.plain, xm, xs,
+                                                       x48, 48, depth))
     rows.append(("score_block_max", ms, plain_ms,
                  *bound(48 * t_count * node_bytes + 48 * 16 * 4 + 2 * 16 * 4
                         + 8, 48 * (2 * 16 + t_count * (depth + 1)))))
+    k3_kernels = profiled(torch, fns["score_block_max"])
+    if k3_kernels:
+        check(len(k3_kernels) == 1 and k3_kernels[0][2] == 10,
+              f"K3: expected one kernel per call, the profiler saw "
+              f"{k3_kernels} over 10 calls")
+    print(f"K2/K3 on phase 6's forest: T={t_count}, M="
+          f"{pf.records.shape[1]}, depth {depth}, cluster {pf.cluster}, "
+          f"route {pf.route}; K3 kernels over 10 calls: "
+          f"{[(r[0][:60], r[2]) for r in k3_kernels] or 'not measured'}; "
+          f"one call between two events, host included: K2 "
+          f"{time_ms_per_call(fns['forest_predict']):.4f} ms, K3 "
+          f"{time_ms_per_call(fns['score_block_max']):.4f} ms")
+    forest_design_probe(torch, ops, ref, fi)
 
     nh48, f48, delay = noc["nh"], noc["f"], noc["delay"]
     max_hops = noc["max_hops"]
@@ -955,9 +1108,6 @@ def main(argv: list[str]) -> int:
                  *bound(bsz * n * n * 4 * 5 + n * n * 4 + bsz * n * 4
                         + bsz * 4, hop_sum + 4 * bsz * n * n,
                         PEAK_FP32_INSTR)))
-    fns["forest_predict"] = lambda: ops.forest_predict(*nodes, x1, depth)
-    fns["score_block_max"] = lambda: ops.score_block_max(
-        *nodes, xm, xs, x48, 48, depth)
 
     kernels = []
     for name, ms, plain_ms, bound_ms, bound_by in rows:

@@ -7,9 +7,10 @@ is flattened into struct-of-arrays form: per-tree ``feature`` /
 padded (T, M) tensor with self-looping leaves. ``predict`` has two
 backends:
 
-  * ``"auto"``  — the device path: kernel K2 (``csrc/forest.cu``) for a
-    CUDA device, its plain PyTorch version on the CPU; f32 compares, tree
-    mean in a fixed order;
+  * ``"auto"``  — the device path: kernel K2 (``csrc/forest.cu``, on the
+    node records of :meth:`RegressionForest.packed`) for a CUDA device, its
+    plain PyTorch version on the CPU; f32 compares, tree mean in a fixed
+    order;
   * ``"numpy"`` — the f64 host oracle (flat vectorized traversal).
 
 The reference's ``"jnp"`` and ``"pallas"`` backends are replaced by
@@ -145,7 +146,8 @@ class RegressionForest:
         self.trees: list[_Tree] = []
         self._xm = self._xs = None
         self._flat = None          # packed (T, M) numpy tensors
-        self._dev_nodes = None     # (device, kernel-layout tensors)
+        self._dev_nodes = None     # (device, (T, M) tensors)
+        self._packed = None        # (device, ops.PackedForest)
 
     def fit(self, x: np.ndarray, y: np.ndarray) -> "RegressionForest":
         x = np.asarray(x, np.float64)
@@ -212,6 +214,7 @@ class RegressionForest:
             "depth": int(flat["depth"]), "n_nodes": int(m),
         }
         self._dev_nodes = None
+        self._packed = None
 
     @property
     def n_fitted_trees(self) -> int:
@@ -230,16 +233,17 @@ class RegressionForest:
         xn = self._normalize(x)
         if b == "numpy":
             return self._predict_numpy(xn)
-        nodes = self.device_nodes()
-        xt = torch.as_tensor(xn.astype(np.float32), device=nodes[0].device)
-        out = ops.forest_predict(*nodes, xt, self._flat["depth"])
+        packed = self.packed()
+        xt = torch.as_tensor(xn.astype(np.float32),
+                             device=packed.value.device)
+        out = ops.forest_predict_packed(packed, xt)
         return out.cpu().numpy().astype(np.float64)
 
     def device_nodes(self, device: str | torch.device | None = None
                      ) -> tuple[torch.Tensor, ...]:
         """(threshold f32, feature i32 clamped, child (T, 2M) i32
         interleaved, value f32) on ``device`` (default: the forest's) — the
-        layout of kernels K2 and K3; built once per forest and device."""
+        plain versions' layout; built once per forest and device."""
         dev = resolve_device(device if device is not None else self.device)
         if self._dev_nodes is None or self._dev_nodes[0] != dev:
             fl = self._flat
@@ -253,6 +257,17 @@ class RegressionForest:
             self._dev_nodes = (dev, tuple(torch.as_tensor(a, device=dev)
                                           for a in arrs))
         return self._dev_nodes[1]
+
+    def packed(self, device: str | torch.device | None = None
+               ) -> ops.PackedForest:
+        """:meth:`device_nodes` packed into the node records of kernels K2
+        and K3 (``ops.pack_forest``); built and checked once per forest and
+        device."""
+        dev = resolve_device(device if device is not None else self.device)
+        if self._packed is None or self._packed[0] != dev:
+            self._packed = (dev, ops.pack_forest(*self.device_nodes(dev),
+                                                 self._flat["depth"]))
+        return self._packed[1]
 
     def _predict_numpy(self, xn: np.ndarray) -> np.ndarray:
         """Flat vectorized traversal: node pointers advanced ``depth`` times

@@ -209,12 +209,15 @@ class MetaScorer:
         _, self._h, self._eid, self._e = _host_consts(spec)
         self.c = _device_consts(spec, str(self.device))
         self._iu0, self._iu1 = self._h["iu0"], self._h["iu1"]
-        self.nodes = model.device_nodes(self.device)
-        self.depth = model._flat["depth"]
+        self.forest = model.packed(self.device)
         self.xm = torch.as_tensor(model._xm.astype(np.float32),
                                   device=self.device)
         self.xs = torch.as_tensor(model._xs.astype(np.float32),
                                   device=self.device)
+        # K3's (value bits, row) on the device, read back in one 8-byte copy.
+        self._out = torch.empty(2, dtype=torch.int32, device=self.device)
+        self._out_host = torch.empty(
+            2, dtype=torch.int32, pin_memory=self.device.type == "cuda")
 
     # ------------------------------------------------------------- encoding
     def _encode(self, moves: NeighborMoves) -> tuple:
@@ -260,9 +263,10 @@ class MetaScorer:
         feats = fused_features(
             self.c, self._h["k"], t(base_perm), t(base_lm),
             tuple(t(s) for s in scalars), t(sa), t(sb), t(er), t(ea))
-        vj, j = ops.score_block_max(*self.nodes, self.xm, self.xs, feats,
-                                    feats.shape[0], self.depth)
-        return int(j.item()), float(vj.item())
+        ops.score_block_max_packed(self.forest, self.xm, self.xs, feats,
+                                   feats.shape[0], self._out)
+        out = self._out_host.copy_(self._out).numpy()
+        return int(out[1]), float(out[:1].view(np.float32)[0])
 
     # -------------------------------------------------------------- scoring
     def score_base(self, d: Design) -> float:

@@ -51,9 +51,8 @@ KERNELS = {k.name: k for k in (
 _SIGS = {
     "minplus_launch": ("minplus", [_P, _P, _P, _I, _I, _P]),
     "apsp_launch": ("minplus", [_P, _P, _I, _I, _I, _P]),
-    "forest_predict_launch": ("forest", [_P] * 6 + [_I] * 5 + [_P]),
-    "score_block_max_launch": ("forest", [_P] * 7 + [_I] * 6 + [_P] * 5),
-    "forest_blocks": ("forest", [_I]),
+    "forest_predict_launch": ("forest", [_P] * 4 + [_I] * 8 + [_P]),
+    "score_block_max_launch": ("forest", [_P] * 5 + [_I] * 8 + [_P] * 4),
     "walk_launch": ("walk", [_P] * 3 + [_I] * 3 + [_P] * 7),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F]
@@ -106,9 +105,13 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 
 def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _fn(symbol)(*args, stream)
+    """Launch on the current stream of ``device`` (a tensor's, so its index
+    is set), made the current device first where it is not."""
+    idx = device.index
+    if idx != torch.cuda.current_device():
+        with torch.cuda.device(idx):
+            return _launch(kernel, symbol, device, *args)
+    err = _fn(symbol)(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
@@ -171,6 +174,47 @@ def apsp(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- K2 / K3
+#: Rows of the batch one thread-block cluster of the forest kernels walks.
+FOREST_BLOCK_ROWS = 64
+#: Most CTAs in a cluster; the trees are split among them.
+FOREST_MAX_CLUSTER = 8
+#: Largest slice of packed records and leaf values (bytes) that one CTA
+#: keeps in shared memory; a forest whose slice is larger takes the "l2"
+#: route, its records read through L2.
+FOREST_SMEM_SLICE_MAX = 160 * 1024
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedForest:
+    """A forest in the layout of kernels K2 and K3 on one device, built and
+    checked once by :func:`pack_forest`.
+
+    ``records`` (T, M, 4) i32 holds one 16-byte record per node: threshold
+    bits, feature (clamped to 0 at leaves), left, right; M is padded to a
+    multiple of 4 with records that no walk reaches. ``value`` (T, M) f32
+    holds the leaf values. ``plain`` keeps the four (T, M) / (T, 2M)
+    tensors it was packed from, which the plain versions take. The trees
+    are split among ``cluster`` CTAs, CTA r taking :func:`tree_slice`."""
+
+    records: torch.Tensor
+    value: torch.Tensor
+    plain: tuple
+    depth: int
+    n_features: int
+    cluster: int
+    route: str
+
+    @property
+    def n_trees(self) -> int:
+        return self.records.shape[0]
+
+
+def tree_slice(t_count: int, cluster: int, rank: int) -> tuple[int, int]:
+    """Trees [t0, t1) that CTA ``rank`` of a forest cluster walks; no slice
+    holds more than ceil(T / cluster) trees."""
+    return rank * t_count // cluster, (rank + 1) * t_count // cluster
+
+
 def _check_forest(thr, feat, child, value):
     t, m = thr.shape
     _check(thr, "threshold", torch.float32, (t, m))
@@ -180,48 +224,123 @@ def _check_forest(thr, feat, child, value):
     return t, m
 
 
-def forest_predict(thr, feat, child, value, x, depth: int) -> torch.Tensor:
-    """(B,) f32 forest mean of an already-normalized (B, F) batch (K2)."""
-    if not _on_cuda(thr, feat, child, value, x):
-        return ref.forest_predict_ref(thr, feat, child, value, x, depth)
+def pack_forest(thr, feat, child, value, depth: int) -> PackedForest:
+    """Check the (T, M) forest tensors of ``RegressionForest.device_nodes``
+    once and pack them into K2/K3's node records, on their device."""
     t, m = _check_forest(thr, feat, child, value)
-    rows, f = x.shape
-    _check(x, "x", torch.float32, (rows, f))
+    if t < 1 or m < 1 or depth < 0:
+        raise ValueError(f"forest needs T >= 1 trees, M >= 1 nodes and "
+                         f"depth >= 0, got T={t}, M={m}, depth={depth}")
+    if int(child.min()) < 0 or int(child.max()) >= m or int(feat.min()) < 0:
+        raise ValueError("forest: children must lie in [0, M) and features "
+                         "be >= 0 (leaves clamped)")
+    mp = -(-m // 4) * 4
+    rec = torch.zeros((t, mp, 4), dtype=torch.int32, device=thr.device)
+    rec[:, :m, 0] = thr.view(torch.int32)
+    rec[:, :m, 1] = feat
+    rec[:, :m, 2:] = child.view(t, m, 2)
+    val = torch.zeros((t, mp), dtype=torch.float32, device=thr.device)
+    val[:, :m] = value
+    cluster = min(FOREST_MAX_CLUSTER, t)
+    slice_bytes = -(-t // cluster) * mp * 20
+    route = "smem" if slice_bytes <= FOREST_SMEM_SLICE_MAX else "l2"
+    return PackedForest(rec, val, (thr, feat, child, value), depth,
+                        int(feat.max()) + 1, cluster, route)
+
+
+def _forest_args(forest: PackedForest, x: torch.Tensor) -> tuple:
+    """The launch's forest and shape arguments after checking ``x``."""
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x: expected a contiguous (B, F) f32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.shape[1] < forest.n_features:
+        raise ValueError(f"x has {x.shape[1]} features, the forest reads "
+                         f"{forest.n_features}")
+    t, m = forest.value.shape
+    return (forest.records.data_ptr(), forest.value.data_ptr(), t, m,
+            x.shape[1], forest.depth, forest.cluster, FOREST_BLOCK_ROWS,
+            int(forest.route == "smem"))
+
+
+def forest_predict_packed(forest: PackedForest, x: torch.Tensor
+                          ) -> torch.Tensor:
+    """(B,) f32 forest mean of an already-normalized (B, F) batch (K2)."""
+    if not _on_cuda(forest.value, x):
+        return ref.forest_predict_ref(*forest.plain, x, forest.depth)
+    rec, val, t, m, f, depth, cl, br, route = _forest_args(forest, x)
+    rows = x.shape[0]
     out = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows:
-        _launch("forest_predict", "forest_predict_launch", x.device,
-                thr.data_ptr(), feat.data_ptr(), child.data_ptr(),
-                value.data_ptr(), x.data_ptr(), out.data_ptr(), rows, t, m,
-                f, depth)
+        _launch("forest_predict", "forest_predict_launch", x.device, rec,
+                val, x.data_ptr(), out.data_ptr(), rows, t, m, f, depth, cl,
+                br, route)
     return out
+
+
+_fold_scratch: dict[torch.device, torch.Tensor] = {}
+
+
+def score_block_max_packed(forest: PackedForest, xm, xs, x, n_real: int,
+                           out: torch.Tensor) -> torch.Tensor:
+    """(max value, first argmax) over rows < ``n_real`` of the forest mean
+    of ``(x - xm) / xs`` (K3), written into ``out`` (2,) i32 as the value's
+    f32 bits and the row: one 8-byte read-back. Returns ``out``.
+
+    On the card the fold across clusters counts on a per-device scratch
+    counter that every launch leaves at zero: calls on one device must be
+    ordered on one stream."""
+    rows = x.shape[0]
+    if not 1 <= n_real <= rows:
+        raise ValueError(f"n_real must be in [1, {rows}], got {n_real}")
+    if out.dtype != torch.int32 or out.shape != (2,) or out.stride() != (1,):
+        raise ValueError("out: expected a contiguous (2,) i32 tensor")
+    if not _on_cuda(forest.value, xm, xs, x, out):
+        v, j = ref.score_block_max_ref(*forest.plain, xm, xs, x, n_real,
+                                       forest.depth)
+        out.view(torch.float32)[0] = v
+        out[1] = j
+        return out
+    rec, val, t, m, f, depth, cl, br, route = _forest_args(forest, x)
+    _check(xm, "xm", torch.float32, (f,))
+    _check(xs, "xs", torch.float32, (f,))
+    dev = x.device
+    n_clusters = -(-n_real // br)
+    ws = _fold_scratch.get(dev)
+    if ws is None or ws.numel() < 1 + 2 * n_clusters:
+        ws = _fold_scratch[dev] = torch.zeros(1 + 2 * n_clusters,
+                                              dtype=torch.int32, device=dev)
+    ptr = out.data_ptr()
+    _launch("score_block_max", "score_block_max_launch", dev, rec, val,
+            xm.data_ptr(), xs.data_ptr(), x.data_ptr(), n_real, t, m, f,
+            depth, cl, br, route, ws.data_ptr(), ptr, ptr + 4)
+    return out
+
+
+def forest_predict(thr, feat, child, value, x, depth: int) -> torch.Tensor:
+    """(B,) f32 forest mean of an already-normalized (B, F) batch (K2),
+    from the four forest tensors: packed per call on the card (the main
+    path packs once, :meth:`RegressionForest.packed`)."""
+    if not _on_cuda(thr, feat, child, value, x):
+        return ref.forest_predict_ref(thr, feat, child, value, x, depth)
+    return forest_predict_packed(
+        pack_forest(thr, feat, child, value, depth), x)
 
 
 def score_block_max(thr, feat, child, value, xm, xs, x, n_real: int,
                     depth: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(max value, first argmax) over rows < ``n_real`` of the forest mean
-    of ``(x - xm) / xs`` (K3). Returns 0-d f32 and i32 tensors."""
-    rows, f = x.shape
+    of ``(x - xm) / xs`` (K3), from the four forest tensors (packed per
+    call on the card). Returns 0-d f32 and i32 tensors."""
+    rows = x.shape[0]
     if not 1 <= n_real <= rows:
         raise ValueError(f"n_real must be in [1, {rows}], got {n_real}")
     if not _on_cuda(thr, feat, child, value, xm, xs, x):
         return ref.score_block_max_ref(thr, feat, child, value, xm, xs, x,
                                        n_real, depth)
-    t, m = _check_forest(thr, feat, child, value)
-    _check(x, "x", torch.float32, (rows, f))
-    _check(xm, "xm", torch.float32, (f,))
-    _check(xs, "xs", torch.float32, (f,))
-    blocks = _fn("forest_blocks")(rows)
-    dev = x.device
-    part_val = torch.empty(blocks, dtype=torch.float32, device=dev)
-    part_arg = torch.empty(blocks, dtype=torch.int32, device=dev)
-    out_val = torch.empty((), dtype=torch.float32, device=dev)
-    out_arg = torch.empty((), dtype=torch.int32, device=dev)
-    _launch("score_block_max", "score_block_max_launch", dev,
-            thr.data_ptr(), feat.data_ptr(), child.data_ptr(),
-            value.data_ptr(), xm.data_ptr(), xs.data_ptr(), x.data_ptr(),
-            rows, n_real, t, m, f, depth, part_val.data_ptr(),
-            part_arg.data_ptr(), out_val.data_ptr(), out_arg.data_ptr())
-    return out_val, out_arg
+    out = torch.empty(2, dtype=torch.int32, device=x.device)
+    score_block_max_packed(pack_forest(thr, feat, child, value, depth), xm,
+                           xs, x, n_real, out)
+    return out.view(torch.float32)[0], out[1]
 
 
 # ------------------------------------------------------------------- K4

@@ -67,7 +67,9 @@ def _tree_mean(value, idx) -> torch.Tensor:
     acc = torch.zeros(vals.shape[1], dtype=vals.dtype, device=vals.device)
     for t in range(vals.shape[0]):                    # trees ascending
         acc = acc + vals[t]
-    return acc / vals.shape[0]
+    # A true f32 division, as the kernels do: PyTorch on CUDA divides by a
+    # Python scalar as a product with its f32 reciprocal (1 ulp apart).
+    return acc / torch.full_like(acc, vals.shape[0])
 
 
 def forest_predict_ref(thr, feat, child, value, x, depth: int) -> torch.Tensor:

@@ -127,6 +127,107 @@ def test_forest_and_score_against_plain(dev):
     assert int(j) == int(pj) and abs(float(v) - float(pv)) <= 1e-6
 
 
+#: K2/K3 forests (fit kwargs, rows fitted on): the phase-6 forest (24
+#: trees, depth 9), one tree, 10 trees (not a multiple of the cluster of
+#: 8), depth 0, and one deep enough to take the L2 route.
+K23_FORESTS = {
+    "t24": (dict(), 400),
+    "t1": (dict(n_trees=1), 400),
+    "t10": (dict(n_trees=10), 400),
+    "depth0": (dict(max_depth=0), 400),
+    "l2": (dict(max_depth=16, min_leaf=1), 6000),
+}
+_k23_cache: dict = {}
+
+
+def _k23(name: str):
+    """(packed forest on the card, spec_64 features of 6000 designs)."""
+    if "x" not in _k23_cache:
+        rng = np.random.default_rng(11)
+        spec = spec_64()
+        _k23_cache["x"] = design_features_batch(
+            spec, [random_design(spec, rng) for _ in range(6000)])
+    x = _k23_cache["x"]
+    if name not in _k23_cache:
+        kw, n = K23_FORESTS[name]
+        y = x[:n, 0] + np.random.default_rng(12).normal(size=n)
+        forest = RegressionForest(seed=0, device="cuda", **kw).fit(x[:n],
+                                                                    y)
+        _k23_cache[name] = forest
+    return _k23_cache[name], x
+
+
+@pytest.mark.parametrize("bsz", [1, 7, 48, 128, 1500])
+@pytest.mark.parametrize("name", sorted(K23_FORESTS))
+def test_forest_kernels_bit_equal_plain(dev, name, bsz):
+    """K2 and K3 bit-equal to their plain versions on the card, one launch
+    per call; the route follows the forest's size."""
+    forest, x_all = _k23(name)
+    pf = forest.packed()
+    assert pf.route == ("l2" if name == "l2" else "smem")
+    rng = np.random.default_rng(bsz)
+    xq = x_all[rng.integers(0, x_all.shape[0], size=bsz)]
+    xn = torch.as_tensor(forest._normalize(xq).astype(np.float32),
+                         device=dev)
+    n0 = ops.KERNELS["forest_predict"].launches
+    got = ops.forest_predict_packed(pf, xn)
+    assert ops.KERNELS["forest_predict"].launches == n0 + 1
+    assert torch.equal(got, ref.forest_predict_ref(*pf.plain, xn, pf.depth))
+    x = torch.as_tensor(xq.astype(np.float32), device=dev)
+    xm = torch.as_tensor(forest._xm.astype(np.float32), device=dev)
+    xs = torch.as_tensor(forest._xs.astype(np.float32), device=dev)
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+    for n_real in sorted({1, max(1, bsz - 5), bsz}):
+        n0 = ops.KERNELS["score_block_max"].launches
+        ops.score_block_max_packed(pf, xm, xs, x, n_real, out)
+        assert ops.KERNELS["score_block_max"].launches == n0 + 1
+        v, j = ref.score_block_max_ref(*pf.plain, xm, xs, x, n_real,
+                                       pf.depth)
+        assert int(out[1]) == int(j)
+        assert int(out[0]) == int(v.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [(63, 64), (127, 128), (10, 130),
+                                  (64, 65, 199), (1499, 1400, 700)])
+def test_score_block_max_ties_keep_the_first_row(dev, rows):
+    """Equal features at rows across lane, block and cluster edges: the
+    kernel's argmax is the first of them, as torch.argmax."""
+    forest, x_all = _k23("t24")
+    pf = forest.packed()
+    bsz = 1500 if max(rows) >= 200 else 200
+    x = torch.as_tensor(x_all[:bsz].astype(np.float32), device=dev)
+    xm = torch.as_tensor(forest._xm.astype(np.float32), device=dev)
+    xs = torch.as_tensor(forest._xs.astype(np.float32), device=dev)
+    vals = ref.forest_predict_ref(*pf.plain, (x - xm) / xs, pf.depth)
+    j0 = int(torch.argmax(vals))
+    for r in rows:
+        x[r] = x[j0]
+    x[j0] = x[(j0 + 1) % bsz] if j0 < min(rows) else x[j0]
+    vals = ref.forest_predict_ref(*pf.plain, (x - xm) / xs, pf.depth)
+    first = int(torch.nonzero(vals == vals.max())[0])
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+    ops.score_block_max_packed(pf, xm, xs, x, bsz, out)
+    assert int(out[1]) == first
+    assert int(out[0]) == int(vals[first].view(torch.int32))
+
+
+@pytest.mark.parametrize("bsz", [48, 1500])
+def test_forest_kernels_ten_calls_bit_identical(dev, bsz):
+    """Ten back-to-back launches on one stream give the same bits: K3's
+    fold counter resets itself."""
+    forest, x_all = _k23("t24")
+    pf = forest.packed()
+    x = torch.as_tensor(x_all[:bsz].astype(np.float32), device=dev)
+    xm = torch.as_tensor(forest._xm.astype(np.float32), device=dev)
+    xs = torch.as_tensor(forest._xs.astype(np.float32), device=dev)
+    outs = [ops.score_block_max_packed(
+        pf, xm, xs, x, bsz, torch.empty(2, dtype=torch.int32, device=dev))
+        for _ in range(10)]
+    preds = [ops.forest_predict_packed(pf, (x - xm) / xs) for _ in range(10)]
+    for o, p in zip(outs[1:], preds[1:]):
+        assert torch.equal(o, outs[0]) and torch.equal(p, preds[0])
+
+
 def test_evaluator_card_matches_cpu(dev):
     spec = spec_64()
     f = traffic_matrix(spec, "BFS")
