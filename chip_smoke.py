@@ -20,7 +20,19 @@ each raising on failure:
   3. the main path: MOO-STAGE on spec_64 under the paper's BFS traffic,
      case5, 2000 evaluations, through ``repro_torch.noc.run`` on the card,
      with the launches of each kernel counted over that run alone;
-  4. card against CPU end to end on spec_tiny, seeds 0/1/2;
+     3b. the multi-start search (``stage_batch``, 4 starts) on the same
+     problem, with 40 local steps (K1 and K4 launched; the first local
+     searches spend the budget) and with 4 (the meta search runs: K1-K4
+     launched), each front re-evaluated on the CPU; spec_tiny
+     ``stage_batch``, seeds 0/1/2, card against CPU;
+  4. card against CPU end to end on spec_tiny, seeds 0/1/2: the default
+     search at 300 evaluations, and MOO-STAGE over several local and meta
+     searches (4 local steps, 500 evaluations) on the host and the fused
+     meta path, with K2 (and on the fused path K3) launched on every card
+     run. Card-against-CPU searches must give the same front and
+     accounting, or part at a knife-edge: the same designs up to the
+     parting, rows within rtol 1e-5, and the card run replayed on the
+     CPU's rows is the CPU run bit for bit (``repro_torch.noc.parity``);
   5. the evaluator's delta path on the card, bit-equal to the dense path;
   6. each kernel timed at its main-path shapes beside its plain version and
      its bound, printed as one JSON ``kernels`` line; K1–K4 also by the
@@ -42,8 +54,16 @@ each raising on failure:
      the smoke-size hybrid on card and CPU;
  10. K5 and K6 timed at phase 9's shapes beside their plain versions, their
      bounds and (K5) PyTorch's own attention call, and one prefill and one
-     ``generate`` under torch.profiler. The ``kernels`` JSON line lists all
-     six kernels.
+     ``generate`` under torch.profiler;
+ 11. the baselines AMOSA, NSGA-II and PCBB on phase 3's problem at 500
+     evaluations (K1 and K4 launched in each, fronts re-evaluated on the
+     CPU, PCBB stopped by the budget guard with a front); the NSGA-II rank
+     and the PHV device twins against their host versions; the
+     application-agnostic study on spec_36 (BFS, BP, CDN, HS); MOO-STAGE
+     under yi-6b decode traffic and the trace link report of its min-EDP
+     design (one K4 call per phase, each held against its plain version,
+     the report against the CPU's); the flit simulator on spec_64 (host
+     numpy). The ``kernels`` JSON line lists all six kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.
@@ -844,6 +864,333 @@ def random_graphs(torch, rng, bsz: int, n: int, p_edge: float, dev):
     return torch.as_tensor(w, device=dev)
 
 
+# ------------------------------------------- searches held card against CPU
+#: Objective rows on the card against the CPU (K4's order and PyTorch's
+#: reductions against the plain versions): relative tolerance.
+ROW_RTOL = 1e-5
+
+
+def launches_of(ops) -> dict:
+    """The launch counts of the NoC kernels."""
+    return {k: n for k, n in ops.launches().items() if k in NOC_KERNELS}
+
+
+def hold_on_card(torch, ops, problem, name, budget, config, device="cuda"):
+    """One search on ``device`` against the same search on the CPU, by
+    ``repro_torch.noc.parity.hold_runs`` at ROW_RTOL: the same front and
+    accounting, or a knife-edge whose replay on the CPU's rows is the CPU's
+    run bit for bit. Returns (device result, launches of the NoC kernels in
+    the device run, parting summary)."""
+    from repro_torch.noc import run
+    from repro_torch.noc.parity import hold_runs
+
+    counts = []
+
+    def on_device(ev):
+        n0 = launches_of(ops)
+        res = run(problem, name, budget, config=config, ev=ev)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        if not counts:                      # the free run, not the replay
+            counts.append({k: launches_of(ops)[k] - n0[k] for k in n0})
+        return res
+
+    def on_cpu(ev):
+        return run(problem, name, budget, config=config, ev=ev)
+
+    res, _, part = hold_runs(on_device, lambda: problem.evaluator(
+        device=device), on_cpu, lambda: problem.evaluator(device="cpu"),
+        ROW_RTOL)
+    return res, counts[0], part
+
+
+def parting_text(part: dict) -> str:
+    if not part["parted"]:
+        return f"same front, same accounting ({part['evals'][0]} evals)"
+    return (f"KNIFE-EDGE: parts at evaluation {part['step']} of "
+            f"{part['evals']}, rows before it within {part['row_rtol']:.3g} "
+            f"(bar {ROW_RTOL}), {part['flips']} flipped comparisons, margin "
+            f"{part['margin']:.3g}; replayed on the CPU's rows the card run "
+            "is the CPU run bit for bit")
+
+
+def multi_iteration_on_card(torch, ops, device="cuda", max_evals=500,
+                            seeds=(0, 1, 2)) -> None:
+    """Phase 4, second part: spec_tiny MOO-STAGE over several local and
+    meta searches (4 local steps, 500 evaluations), seeds 0/1/2, on the
+    host and the fused meta path, card against CPU. The surrogate must have
+    decided something on every card run: K2 launched (both paths) and K3
+    launched (the fused path; the host path scores with K2 alone)."""
+    from repro_torch.noc import Budget, NocProblem, named_spec
+
+    problem = NocProblem(spec=named_spec("tiny"), traffic="BFS",
+                         case="case5")
+    for seed in seeds:
+        for meta in ("host", "fused"):
+            res, counts, part = hold_on_card(
+                torch, ops, problem, "stage",
+                Budget(max_evals=max_evals, seed=seed),
+                {"max_local_steps": 4, "meta_backend": meta}, device)
+            if device != "cpu":
+                check(counts["forest_predict"] > 0,
+                      f"seed {seed} {meta}: K2 never launched")
+                check(meta == "host" or counts["score_block_max"] > 0,
+                      f"seed {seed} {meta}: K3 never launched")
+            print(f"stage seed {seed} meta {meta}: local searches "
+                  f"{res.extra['n_local_searches']}, front "
+                  f"{len(res.designs)}, evals {res.n_evals} calls "
+                  f"{res.n_calls}, launches {json.dumps(counts)}; "
+                  f"{parting_text(part)}")
+
+
+def stage_batch_on_card(torch, ops, device="cuda", spec="64",
+                        max_evals=2000, tiny_evals=500,
+                        seeds=(0, 1, 2)) -> None:
+    """Phase 3b: multi-start MOO-STAGE (``stage_batch``, 4 starts, 40 and
+    then 4 local steps) on spec_64 under BFS, case5, 2000 evaluations, with
+    the launches of the NoC kernels over each run alone and its front
+    re-evaluated on the CPU; then spec_tiny ``stage_batch`` (2 starts, 4
+    local steps, 500 evaluations), seeds 0/1/2, card against CPU, with K2
+    and K3 launched on every card run."""
+    import numpy as np
+
+    from repro_torch.core.evaluate import Evaluator
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec(spec), traffic="BFS", case="case5")
+    ev_cpu = Evaluator(problem.spec, problem.traffic_matrix(), device="cpu")
+    # With 40 local steps the four chains' first local searches spend the
+    # whole budget, so the surrogate (K2, K3) is never queried; with 4
+    # steps the meta search runs between rounds of local searches.
+    for steps, kernels in ((40, ("minplus", "walk")), (4, NOC_KERNELS)):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = run(problem, "stage_batch", Budget(max_evals=max_evals, seed=0),
+                  config={"n_starts": 4, "max_local_steps": steps},
+                  device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_of(ops)
+        if device != "cpu":
+            for name in kernels:
+                check(counts[name] > 0,
+                      f"stage_batch ({steps} steps): {name} never launched")
+        phv = res.phv()
+        check(len(res.designs) > 0 and math.isfinite(phv) and phv > 0,
+              f"stage_batch: front {len(res.designs)}, PHV {phv}")
+        check(np.allclose(ev_cpu.batch(res.designs), res.objs,
+                          rtol=ROW_RTOL, atol=0.0),
+              "stage_batch front re-evaluated on the CPU disagrees")
+        print(f"stage_batch spec_{spec}, {steps} local steps: wall "
+              f"{wall:.3f} s, evals {res.n_evals} calls {res.n_calls}, front "
+              f"{len(res.designs)}, phv {phv:.6g}, local searches "
+              f"{res.extra['n_local_searches']}, launches "
+              f"{json.dumps(counts)}")
+    tiny = NocProblem(spec=named_spec("tiny"), traffic="BFS", case="case5")
+    for seed in seeds:
+        res, counts, part = hold_on_card(
+            torch, ops, tiny, "stage_batch",
+            Budget(max_evals=tiny_evals, seed=seed),
+            {"n_starts": 2, "max_local_steps": 4}, device)
+        if device != "cpu":
+            for name in NOC_KERNELS:
+                check(counts[name] > 0,
+                      f"stage_batch spec_tiny seed {seed}: {name} never "
+                      "launched")
+        print(f"stage_batch spec_tiny seed {seed}: front {len(res.designs)}, "
+              f"evals {res.n_evals} calls {res.n_calls}, launches "
+              f"{json.dumps(counts)}; {parting_text(part)}")
+
+
+#: Phase 11's agnostic study: the paper's 36-tile system and four of its
+#: applications.
+AGNOSTIC_APPS = ("BFS", "BP", "CDN", "HS")
+
+
+def baselines_on_card(torch, ops, device="cuda", spec="64",
+                      max_evals=500) -> dict:
+    """Phase 11 (a): AMOSA, NSGA-II and PCBB on phase 3's problem through
+    ``repro_torch.noc.run``, each with the launches of K1 and K4 over its
+    run alone, its front re-evaluated on the CPU. PCBB has no native budget:
+    the guard stops it and its best-so-far front comes back."""
+    import numpy as np
+
+    from repro_torch.core.evaluate import Evaluator
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec(spec), traffic="BFS", case="case5")
+    ev_cpu = Evaluator(problem.spec, problem.traffic_matrix(), device="cpu")
+    out = {}
+    for name in ("amosa", "nsga2", "pcbb"):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = run(problem, name, Budget(max_evals=max_evals, seed=0),
+                  device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_of(ops)
+        if device != "cpu":
+            check(counts["minplus"] > 0 and counts["walk"] > 0,
+                  f"{name}: K1/K4 launches {counts}")
+        phv = res.phv()
+        check(len(res.designs) > 0 and math.isfinite(phv),
+              f"{name}: front {len(res.designs)}, PHV {phv}")
+        check(np.allclose(ev_cpu.batch(res.designs), res.objs,
+                          rtol=ROW_RTOL, atol=0.0),
+              f"{name}: front re-evaluated on the CPU disagrees")
+        if name == "pcbb":
+            check(res.exhausted, "pcbb: not stopped by the budget guard")
+        print(f"{name}: wall {wall:.3f} s, evals {res.n_evals} calls "
+              f"{res.n_calls}, front {len(res.designs)}, phv {phv:.6g}, "
+              f"exhausted {res.exhausted}, launches {json.dumps(counts)}")
+        out[name] = res
+    return out
+
+
+def twins_on_card(device="cuda") -> None:
+    """Phase 11 (b): the NSGA-II rank/crowding twin against numpy on 20
+    random populations of 2-64 rows with integer-valued ties, and the PHV
+    twin against the host HSO at m = 1-4 with duplicates and candidates
+    beyond ref, on the card."""
+    import numpy as np
+
+    from repro_torch.core.nsga2 import rank_and_crowding
+    from repro_torch.core.pareto import hypervolume_with_batch
+    from repro_torch.core.phv_torch import hypervolume_with_batch_torch
+
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for _ in range(20):
+        n = int(rng.integers(2, 65))
+        m = int(rng.integers(1, 5))
+        objs = rng.integers(0, 4, size=(n, m)).astype(np.float64)
+        r_np, c_np = rank_and_crowding(objs, "numpy")
+        r_d, c_d = rank_and_crowding(objs, "device", device=device)
+        check(np.array_equal(r_np, r_d), "rank twin: ranks differ")
+        fin = np.isfinite(c_np)
+        check(np.array_equal(fin, np.isfinite(c_d)),
+              "rank twin: infinities differ")
+        check(np.allclose(c_d[fin], c_np[fin], rtol=1e-5, atol=1e-6),
+              "rank twin: crowding beyond rtol 1e-5 / atol 1e-6")
+        if fin.any():
+            worst = max(worst, float(np.abs(c_d[fin] - c_np[fin]).max()))
+    phv_err = 0.0
+    for m in (1, 2, 3, 4):
+        rng = np.random.default_rng(m)
+        ref = np.full(m, 1.6)
+        pts = rng.uniform(0.2, 1.5, size=(9, m))
+        pts = np.vstack([pts, pts[:2]])
+        cands = rng.uniform(0.1, 1.9, size=(13, m))
+        got = hypervolume_with_batch_torch(pts, cands, ref, device=device)
+        want = hypervolume_with_batch(pts, cands, ref)
+        check(np.allclose(got, want, rtol=3e-5, atol=3e-6),
+              f"PHV twin at m={m} beyond rtol 3e-5 / atol 3e-6")
+        phv_err = max(phv_err, float(np.abs(got - want).max()))
+    print(f"rank twin: 20 populations, ranks equal, crowding max |diff| "
+          f"{worst:.3g}; PHV twin at m=1-4: max |diff| {phv_err:.3g}")
+
+
+def agnostic_on_card(device="cuda", spec="36", apps=AGNOSTIC_APPS,
+                     budget=None) -> None:
+    """Phase 11 (c): the application-agnostic study (Fig. 9) on the paper's
+    36-tile system, at ``OptimizeBudget()`` defaults, on the card."""
+    import numpy as np
+
+    from repro_torch.core.agnostic import run_agnostic_study, summarize
+    from repro_torch.noc import named_spec
+
+    t0 = time.perf_counter()
+    res = run_agnostic_study(named_spec(spec), apps, "case3", budget,
+                             device=device)
+    wall = time.perf_counter() - t0
+    check(np.allclose(np.diag(res["table"]), 1.0, rtol=0, atol=1e-9),
+          "agnostic table: diagonal is not 1")
+    print(f"agnostic study spec_{spec} {'/'.join(apps)}: wall {wall:.3f} s; "
+          "normalized EDP (row: NoC optimized for; col: app executed)")
+    for a, row in zip(apps, res["table"]):
+        print(f"  {a:>4s} " + " ".join(f"{v:.6f}" for v in row))
+    print("   AVG " + " ".join(f"{v:.6f}" for v in res["avg_row"]))
+    print(f"  summary {json.dumps(summarize(res))}")
+
+
+def workloads_on_card(torch, ops, ref, device="cuda", spec="64",
+                      max_evals=500) -> None:
+    """Phase 11 (d): MOO-STAGE under yi-6b decode traffic on the card, then
+    ``trace_link_report`` of its min-EDP design under yi-6b serving: one K4
+    call per phase, each phase's walk held against ``ref.walk_ref`` as
+    phase 2 holds K4 (hops, delay and all_done bit-equal to the plain
+    version on the card, util and visits bit-equal to the plain version on
+    the CPU), the report within ROW_RTOL of the CPU's."""
+    import numpy as np
+
+    from repro_torch.core.agnostic import pick_min_edp
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+    from repro_torch.workloads import (link_walk_inputs, trace_for,
+                                       trace_link_report)
+
+    problem = NocProblem(spec=named_spec(spec),
+                         traffic={"model": "yi-6b", "phase": "serve.decode"})
+    t0 = time.perf_counter()
+    res = run(problem, "stage", Budget(max_evals=max_evals, seed=0),
+              config={"max_local_steps": 40}, device=device)
+    wall = time.perf_counter() - t0
+    check(len(res.designs) > 0 and math.isfinite(res.phv()),
+          "model-traffic search: empty front")
+    design, _ = pick_min_edp(None, res.designs, res.objs)
+    trace = trace_for("yi-6b", "serving")
+    consts, nh, phases = link_walk_inputs(problem.spec, design, trace,
+                                          device=device)
+    for p, f in phases:
+        k4 = ops.walk(nh, f, consts.link_delay, consts.max_hops)
+        if device != "cpu":
+            check_walk(torch, ops, ref, f"trace phase {p.name}", k4, nh, f,
+                       consts.link_delay, consts.max_hops)
+    n0 = ops.launches()["walk"]
+    t1 = time.perf_counter()
+    rep = trace_link_report(problem.spec, design, trace, device=device)
+    report_s = time.perf_counter() - t1
+    k4 = ops.launches()["walk"] - n0
+    if device != "cpu":
+        check(k4 == len(trace.phases),
+              f"trace_link_report: {k4} K4 launches for "
+              f"{len(trace.phases)} phases")
+    cpu = trace_link_report(problem.spec, design, trace, device="cpu")
+    for key in ("util", "visits"):
+        check(np.allclose(rep[key], cpu[key], rtol=ROW_RTOL, atol=0.0),
+              f"trace_link_report {key}: card against CPU beyond rtol")
+    print(f"stage under {problem.to_json()['traffic']}: wall {wall:.3f} s, "
+          f"evals {res.n_evals}, front {len(res.designs)}, phv "
+          f"{res.phv():.6g}; trace_link_report (yi-6b serving, "
+          f"{len(trace.phases)} phases): {report_s * 1e3:.1f} ms, K4 "
+          f"launches {k4}, each phase held against walk_ref, max link "
+          f"{rep['max_link']}, mean {rep['mean']:.6g} std {rep['std']:.6g}")
+
+
+def netsim_host(designs, spec="64", scale=4.0, cycles=3000) -> None:
+    """Phase 11 (e): the flit simulator (host numpy, no device) on the mesh
+    and the given designs of spec_64 at one injection scale."""
+    import numpy as np
+
+    from repro_torch.core import netsim
+    from repro_torch.core.traffic import traffic_matrix
+    from repro_torch.noc import named_spec
+
+    s = named_spec(spec)
+    f = traffic_matrix(s, "BFS")
+    t0 = time.perf_counter()
+    r = netsim.simulate_batch(s, [s.mesh_design(), *designs], f,
+                              scales=(scale,), seeds=(0,), cycles=cycles)
+    secs = time.perf_counter() - t0
+    check(secs < 30.0, f"netsim took {secs:.1f} s (limit 30 s)")
+    check(bool(np.all(r["delivered"] > 0)), "netsim delivered nothing")
+    print(f"netsim spec_{spec} BFS x{scale}, {cycles} cycles (uncut), mesh "
+          f"and {len(designs)} design(s): {secs:.3f} s on the host; "
+          f"throughput {r['throughput'].ravel().tolist()}, mean latency "
+          f"{r['mean_latency'].ravel().tolist()}")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -872,6 +1219,7 @@ def main(argv: list[str]) -> int:
     import numpy as np
 
     from repro_torch.core import routing
+    from repro_torch.core.agnostic import pick_min_edp
     from repro_torch.core.evaluate import Evaluator
     from repro_torch.core.objectives import (design_cost, design_cost_np,
                                              make_consts)
@@ -1017,6 +1365,13 @@ def main(argv: list[str]) -> int:
           f"phv {phv:.6g} local_searches {res.extra['n_local_searches']} "
           f"launches {json.dumps(main_launches)}")
 
+    main_res = res
+
+    # ------------------------------------------------------------ phase 3b
+    phase("3b multi-start search: stage_batch on spec_64")
+    print(f"card: {card}")
+    stage_batch_on_card(torch, ops)
+
     # ------------------------------------------------------------- phase 4
     phase("4 card against CPU on spec_tiny")
     for seed in (0, 1, 2):
@@ -1032,6 +1387,7 @@ def main(argv: list[str]) -> int:
               f"seed {seed}: accounting differs")
         print(f"seed {seed}: front {len(g.designs)} identical, evals "
               f"{g.n_evals} calls {g.n_calls}")
+    multi_iteration_on_card(torch, ops)
 
     # ------------------------------------------------------------- phase 5
     phase("5 delta path on the card")
@@ -1161,6 +1517,15 @@ def main(argv: list[str]) -> int:
     trace_main_path(torch, lambda: engine.generate(served["prompts"]),
                     served["wall"], "phase 9's warm generate",
                     "trace of one generate")
+
+    # ------------------------------------------------------------ phase 11
+    phase("11 baselines, device twins, agnostic study, workloads, netsim")
+    print(f"card: {card}")
+    baselines_on_card(torch, ops)
+    twins_on_card()
+    agnostic_on_card()
+    workloads_on_card(torch, ops, ref)
+    netsim_host([pick_min_edp(None, main_res.designs, main_res.objs)[0]])
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,8 @@
 """MOO-STAGE and the 3D heterogeneous NoC design problem (objectives
-Eqs. 1-10, Algorithms 1-2) in PyTorch, on an explicit device."""
+Eqs. 1-10, Algorithms 1-2) in PyTorch, on an explicit device, plus the
+AMOSA / PCBB / NSGA-II baselines (``amosa``, ``pcbb``, ``nsga2``), the
+application-agnostic studies (``agnostic``) and the flit simulator
+(``netsim``, host numpy)."""
 
 from .evaluate import Evaluator
 from .features import design_features, design_features_batch

@@ -1,0 +1,220 @@
+"""NSGA-II (Deb et al. [9]) — secondary baseline (the paper cites it as the
+canonical GA-based MOO; AMOSA was shown superior in [10], we include both).
+
+Variation operators respect the design space: crossover recombines the two
+parents' tile placements (cycle-style repair to stay a permutation) and
+takes a random mix of their planar links (repaired to the exact link
+budget); mutation applies the paper's neighbor moves. Evaluation is batched
+through the Evaluator — a full population is scored per device pass.
+
+Selection scoring (nondominated rank + crowding) is itself array-shaped:
+the numpy implementation is the oracle and a PyTorch twin
+(``backend="device"``) computes the O(n²·m) dominance tensor, the
+front-peeling loop, and the per-objective crowding sweeps as tensor
+operations on a device, in f32. Duplicate objective rows are tie-broken
+deterministically by index (first copy ranks first), which keeps the
+dominance relation acyclic — a front always exists and genuinely dominated
+points can never share a rank with a dominator."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .evaluate import Evaluator
+from .local_search import ParetoSet, SearchHistory
+from .pareto import PhvContext
+from .problem import Design, SystemSpec, sample_neighbors
+
+RANK_BACKENDS = ("auto", "numpy", "device")
+
+
+def resolve_rank_backend(backend: str | None = None, device=None) -> str:
+    """``"auto"`` is ``"device"`` when ``device`` (default ``"cuda"``) is a
+    CUDA device and ``"numpy"`` on the CPU."""
+    b = backend if backend is not None else "auto"
+    if b == "jnp":
+        raise ValueError(
+            "rank backend 'jnp' is replaced in repro_torch by 'device' (the "
+            "PyTorch twin on the evaluator's device)")
+    if b not in RANK_BACKENDS:
+        raise ValueError(f"backend must be one of {RANK_BACKENDS}, got {b!r}")
+    if b == "auto":
+        b = "device" if resolve_device(device).type == "cuda" else "numpy"
+    return b
+
+
+def _dominance(objs: np.ndarray):
+    """dom[i, j]: i dominates j, with exact-duplicate rows ordered by index
+    (the first copy dominates later copies). The relation stays acyclic:
+    along any would-be cycle the rows must be equal, and equal rows are
+    ordered by strictly increasing index."""
+    n = objs.shape[0]
+    le = np.all(objs[:, None, :] <= objs[None, :, :], axis=-1)
+    lt = np.any(objs[:, None, :] < objs[None, :, :], axis=-1)
+    idx = np.arange(n)
+    dup = le & ~lt & (idx[:, None] < idx[None, :])
+    return (le & lt) | dup
+
+
+def _fast_nondominated_rank(objs: np.ndarray) -> np.ndarray:
+    dom = _dominance(objs)
+    n = objs.shape[0]
+    n_dom = dom.sum(axis=0)  # how many dominate j
+    rank = np.full(n, -1)
+    r = 0
+    remaining = np.ones(n, dtype=bool)
+    while remaining.any():
+        front = remaining & (n_dom == 0)
+        assert front.any(), "dominance relation must be acyclic"
+        rank[front] = r
+        n_dom = n_dom - dom[front].sum(axis=0)
+        remaining &= ~front
+        r += 1
+    return rank
+
+
+def _crowding(objs: np.ndarray) -> np.ndarray:
+    n, m = objs.shape
+    crowd = np.zeros(n)
+    for j in range(m):
+        order = np.argsort(objs[:, j], kind="stable")
+        rng_j = objs[order[-1], j] - objs[order[0], j] + 1e-12
+        crowd[order[0]] = crowd[order[-1]] = np.inf
+        if n > 2:
+            crowd[order[1:-1]] += (objs[order[2:], j] - objs[order[:-2], j]) / rng_j
+    return crowd
+
+
+def _rank_crowd_torch(objs: torch.Tensor):
+    """(rank, crowding) twin of the numpy pair on ``objs``' device. Peeling
+    runs n rounds (at most n fronts) without reading anything back; the
+    argsorts are stable, as numpy's ``kind="stable"`` is."""
+    n, m = objs.shape
+    dev = objs.device
+    le = (objs[:, None, :] <= objs[None, :, :]).all(dim=-1)
+    lt = (objs[:, None, :] < objs[None, :, :]).any(dim=-1)
+    idx = torch.arange(n, device=dev)
+    dom = (le & lt) | (le & ~lt & (idx[:, None] < idx[None, :]))
+
+    rank = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    n_dom = dom.sum(dim=0)
+    for r in range(n):
+        front = (rank < 0) & (n_dom == 0)
+        rank = torch.where(front, r, rank)
+        n_dom = n_dom - (dom & front[:, None]).sum(dim=0)
+
+    crowd = torch.zeros(n, dtype=objs.dtype, device=dev)
+    for j in range(m):
+        order = torch.argsort(objs[:, j], stable=True)
+        col = objs[order, j]
+        rng_j = col[-1] - col[0] + 1e-12
+        contrib = torch.zeros(n, dtype=objs.dtype, device=dev)
+        if n > 2:
+            contrib[order[1:-1]] = (col[2:] - col[:-2]) / rng_j
+        crowd = crowd + contrib
+        crowd[order[0]] = float("inf")
+        crowd[order[-1]] = float("inf")
+    return rank, crowd
+
+
+def rank_and_crowding(objs: np.ndarray, backend: str | None = None,
+                      device=None):
+    """(rank, crowding) for one population on the selected backend;
+    ``"device"`` runs the f32 twin on ``device`` (default ``"cuda"``) and
+    returns f64 crowding."""
+    if resolve_rank_backend(backend, device) == "device":
+        rank, crowd = _rank_crowd_torch(torch.as_tensor(
+            np.asarray(objs, np.float32), device=resolve_device(device)))
+        return rank.cpu().numpy(), crowd.cpu().numpy().astype(np.float64)
+    return _fast_nondominated_rank(objs), _crowding(objs)
+
+
+def _crossover(spec: SystemSpec, a: Design, b: Design,
+               rng: np.random.Generator) -> Design:
+    n = spec.n_tiles
+    # Placement: copy a then graft a random segment of b, repairing to a perm.
+    child = a.perm.copy()
+    lo, hi = sorted(rng.choice(n, size=2, replace=False))
+    seg = b.perm[lo:hi]
+    rest = [c for c in a.perm if c not in set(seg.tolist())]
+    child[lo:hi] = seg
+    child[:lo] = rest[:lo]
+    child[hi:] = rest[lo:]
+    # Links: union, keep budget many (prefer common links).
+    iu = np.triu_indices(n, 1)
+    both = a.adj[iu] & b.adj[iu]
+    either = (a.adj[iu] | b.adj[iu]) & ~both
+    need = spec.n_planar_links - int(both.sum())
+    pick = np.flatnonzero(either)
+    rng.shuffle(pick)
+    sel = both.copy()
+    sel[pick[:need]] = True
+    adj = np.zeros((n, n), dtype=bool)
+    adj[iu[0][sel], iu[1][sel]] = True
+    return Design(perm=child.astype(np.int32), adj=adj | adj.T)
+
+
+def nsga2(
+    spec: SystemSpec,
+    ev: Evaluator,
+    ctx: PhvContext,
+    d0: Design,
+    seed: int = 0,
+    *,
+    pop_size: int = 32,
+    generations: int = 30,
+    p_mutate: float = 0.6,
+    max_evals: int | None = None,
+    history: SearchHistory | None = None,
+    rank_backend: str = "auto",
+) -> ParetoSet:
+    rng = np.random.default_rng(seed)
+    history = history or SearchHistory(ev, ctx)
+    device = ev.device
+    rank_backend = resolve_rank_backend(rank_backend, device)
+
+    pop = [d0]
+    while len(pop) < pop_size:
+        nb = sample_neighbors(spec, d0, rng, 2, 2)
+        pop.append(nb[rng.integers(len(nb))] if nb else d0.copy())
+    objs = ev.batch(pop)
+    for d, o in zip(pop, objs):
+        history.record(ev, d, o)
+
+    for _ in range(generations):
+        if max_evals is not None and ev.n_evals >= max_evals:
+            break
+        sub = objs[:, list(ctx.obj_idx)]
+        rank, crowd = rank_and_crowding(sub, rank_backend, device)
+
+        def tournament():
+            i, j = rng.integers(len(pop), size=2)
+            if rank[i] < rank[j] or (rank[i] == rank[j] and crowd[i] > crowd[j]):
+                return pop[i]
+            return pop[j]
+
+        children: list[Design] = []
+        while len(children) < pop_size:
+            c = _crossover(spec, tournament(), tournament(), rng)
+            if rng.random() < p_mutate:
+                nb = sample_neighbors(spec, c, rng, 1, 1)
+                if nb:
+                    c = nb[rng.integers(len(nb))]
+            children.append(c)
+        child_objs = ev.batch(children)
+        for d, o in zip(children, child_objs):
+            history.record(ev, d, o)
+
+        # Environmental selection over parents + children.
+        union = pop + children
+        uobjs = np.vstack([objs, child_objs])
+        sub = uobjs[:, list(ctx.obj_idx)]
+        rank, crowd = rank_and_crowding(sub, rank_backend, device)
+        order = np.lexsort((-crowd, rank))
+        keep = order[:pop_size]
+        pop = [union[i] for i in keep]
+        objs = uobjs[keep]
+
+    return ParetoSet.empty().merged_with(pop, objs, ctx.obj_idx)

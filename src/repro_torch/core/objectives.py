@@ -43,6 +43,7 @@ E_PLANAR_MM = 0.6       # planar wire energy per flit per tile pitch,     Eq. 9
 E_VERTICAL = 0.3        # TSV energy per flit,                            Eq. 9
 R_LAYER = 0.25          # vertical thermal resistance R_j (K/W),          Eq. 5
 R_BASE = 2.0            # base-layer thermal resistance R_b (K/W),        Eq. 5
+T_AMBIENT = 45.0        # coolant/ambient reference (deg C), reporting only
 
 
 class SpecConsts(NamedTuple):
@@ -329,3 +330,13 @@ def evaluate_with_tables(c: SpecConsts, perm: torch.Tensor, adj: torch.Tensor,
                        torch.tensor(routing.INF, device=objs.device))
     return objs, {"connected": connected, "net_lat": net_lat}
 
+
+def peak_temperature_celsius(c: SpecConsts, perm: np.ndarray) -> float:
+    """Reporting helper (Fig. 10c): peak core temperature in deg C, in host
+    numpy over the consts of any device."""
+    power_slot = c.core_power.cpu().numpy()[np.asarray(perm)]
+    p = np.zeros((c.n_columns, c.n_layers))
+    np.add.at(p, (c.column.cpu().numpy(), c.layer.cpu().numpy()), power_slot)
+    i_idx = np.arange(1, c.n_layers + 1)
+    t_nk = np.cumsum(p * (i_idx * R_LAYER + R_BASE)[None, :], axis=1)
+    return float(T_AMBIENT + t_nk.max())

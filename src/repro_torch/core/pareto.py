@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..device import resolve_device
+
 
 def dominates(a: np.ndarray, b: np.ndarray) -> bool:
     """a ≺ b (a dominates b) under minimization — paper §5.1."""
@@ -255,7 +257,7 @@ def hypervolume_with_batch(points: np.ndarray, cands: np.ndarray,
     return out
 
 
-PHV_BACKENDS = ("host",)
+PHV_BACKENDS = ("host", "device")
 
 
 class PhvContext:
@@ -266,18 +268,31 @@ class PhvContext:
     scale; the reference point is ``ref_scale`` in those units (designs worse
     than ``ref_scale``x mesh contribute zero volume).
 
-    ``phv_backend`` accepts only ``"host"``, the exact f64 HSO here; the
-    batched f32 device twin of the PHV scorer is not part of this package
-    yet."""
+    ``phv_backend`` selects the batched scorer behind
+    :meth:`phv_with_batch` (the chain-step hot path): ``"host"`` (default)
+    is the exact f64 HSO here; ``"device"`` routes through the f32 twin
+    (core.phv_torch) on ``device`` (default ``"cuda"``) — one program of
+    tensor operations per chain step instead of a per-survivor host
+    recursion. The twin is opt-in because f32 cannot resolve the chain
+    accept test's 1e-12 epsilon near convergence (its conformance bound is
+    ~1e-5 relative); scalar entry points (``phv``, ``phv_with``) always stay
+    host-exact."""
 
     def __init__(self, mesh_objs: np.ndarray, obj_idx: tuple[int, ...],
-                 ref_scale: float = 1.6, phv_backend: str = "host"):
+                 ref_scale: float = 1.6, phv_backend: str = "host",
+                 device=None):
+        if phv_backend == "jnp":
+            raise ValueError(
+                "phv_backend 'jnp' is replaced in repro_torch by 'device' "
+                "(the f32 twin in core.phv_torch)")
         if phv_backend not in PHV_BACKENDS:
             raise ValueError(
                 f"phv_backend must be one of {PHV_BACKENDS}, "
                 f"got {phv_backend!r}")
         self.obj_idx = tuple(obj_idx)
         self.phv_backend = phv_backend
+        self.device = (resolve_device(device) if phv_backend == "device"
+                       else None)
         base = np.asarray(mesh_objs, dtype=np.float64)[list(obj_idx)]
         base = np.where(base <= 0, 1.0, base)
         self.base = base
@@ -311,4 +326,11 @@ class PhvContext:
             setn = np.zeros((0, len(self.obj_idx)))
         else:
             setn = self.normalize(np.atleast_2d(set_objs))
+        if self.phv_backend == "device" and len(self.obj_idx) <= 4:
+            # m = 5 would batch an O(S^3) masked recursion — past the twin's
+            # win; no active case uses it, so it stays host-served.
+            from .phv_torch import hypervolume_with_batch_torch
+
+            return hypervolume_with_batch_torch(setn, ext, self.ref,
+                                                device=self.device)
         return hypervolume_with_batch(setn, ext, self.ref)

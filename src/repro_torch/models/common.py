@@ -99,6 +99,22 @@ class ModelConfig:
         return d * (2 * d_in + 2 * n + h) + d_in * d + \
             self.conv_width * (d_in + 2 * n) + 2 * h + d_in
 
+    def active_param_count(self) -> int:
+        """MoE: parameters touched per token (6*N_active*D flops rule)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        dense_per_layer = (
+            d * self.resolved_head_dim * (self.n_heads + 2 * self.n_kv_heads)
+            + self.resolved_head_dim * self.n_heads * d + 2 * d
+            + d * self.n_experts
+        )
+        act_moe = self.top_k * 3 * d * self.moe_d_ff
+        return int(
+            self.vocab * d * 2 + d
+            + self.n_layers * (dense_per_layer + act_moe)
+        )
+
 
 # ------------------------------------------------------------------- layers
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

@@ -13,13 +13,15 @@ CLI: ``python -m repro_torch.noc run`` (see repro_torch.noc.cli).
 from .api import (Budget, BudgetedEvaluator, BudgetExhausted, NocProblem,
                   RunRecorder, RunResult, design_from_json, design_to_json,
                   named_spec, run)
-from .optimizers import (OPTIMIZERS, LocalConfig, OptimizerEntry,
-                         StageBatchConfig, StageConfig, get_optimizer,
-                         make_config, optimizer_names, register)
+from .optimizers import (OPTIMIZERS, AmosaConfig, LocalConfig, Nsga2Config,
+                         OptimizerEntry, PcbbConfig, StageBatchConfig,
+                         StageConfig, get_optimizer, make_config,
+                         optimizer_names, register)
 
 __all__ = [
-    "Budget", "BudgetExhausted", "BudgetedEvaluator", "LocalConfig",
-    "NocProblem", "OPTIMIZERS", "OptimizerEntry", "RunRecorder", "RunResult",
+    "AmosaConfig", "Budget", "BudgetExhausted", "BudgetedEvaluator",
+    "LocalConfig", "NocProblem", "Nsga2Config", "OPTIMIZERS",
+    "OptimizerEntry", "PcbbConfig", "RunRecorder", "RunResult",
     "StageBatchConfig", "StageConfig", "design_from_json", "design_to_json",
     "get_optimizer", "make_config", "named_spec", "optimizer_names",
     "register", "run",

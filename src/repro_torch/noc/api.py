@@ -5,7 +5,8 @@ One serializable boundary for the optimizers of the port:
   * :class:`NocProblem` — spec + traffic + objective case + routing and
     surrogate knobs. The device is not part of the problem (nor of its JSON).
   * :class:`Budget` — evaluation / device-pass budget + seed, enforced
-    uniformly (the :class:`BudgetedEvaluator` guard backstops drivers).
+    uniformly (the :class:`BudgetedEvaluator` guard backstops drivers
+    without native budget support, e.g. PCBB).
   * :class:`RunResult` — Pareto designs + full objective rows, the
     convergence history, eval/call accounting, and optimizer diagnostics;
     JSON ``save``/``load`` round-trips bit-exactly, and the JSON is the
@@ -57,13 +58,16 @@ class NocProblem:
       * an application name (see ``core.traffic.APP_NAMES``),
       * a sequence of application names — their aggregated (AVG) traffic,
         the leave-one-out construction of the agnostic study (§6.4),
+      * a model scenario ``{"model": arch, "phase": phase, "mesh": [d, m]}``
+        — traffic derived from a real model config by
+        ``repro_torch.workloads`` (``phase`` defaults to "train.fwd",
+        ``mesh`` to the `derive_mesh` default, and both are resolved at
+        construction so every spelling of a scenario hashes identically), or
       * an explicit (N, N) flit-rate matrix.
 
-    Model-derived traffic (``{"model": ...}``) needs the workload layer,
-    which this package does not have yet: it raises NotImplementedError.
-    Every other variant is validated at construction (unknown app names and
-    non-finite / negative / zero-sum / wrongly shaped matrices raise
-    ``TrafficValidationError``).
+    Every variant is validated at construction (unknown app/model/phase
+    names, non-tiling meshes, and non-finite / negative / zero-sum / wrongly
+    shaped matrices raise ``TrafficValidationError``).
 
     ``case`` selects the objective subset (``core.objectives.CASES``);
     ``backend`` is the routing knob, which accepts only ``"auto"`` here;
@@ -93,9 +97,10 @@ class NocProblem:
         """Validate + canonicalize ``traffic``; raises TrafficValidationError."""
         t = self.traffic
         if isinstance(t, dict):
-            raise NotImplementedError(
-                "model-derived traffic ({'model': ...}) needs the workload "
-                "layer, which repro_torch does not have yet")
+            # deferred: the workload layer pulls in the model-config registry
+            from ..workloads import normalize_model_traffic
+
+            return normalize_model_traffic(self.spec, t)
         if isinstance(t, str):
             if t not in APPLICATIONS:
                 raise TrafficValidationError(
@@ -149,6 +154,11 @@ class NocProblem:
     # ------------------------------------------------------------ builders
     def traffic_matrix(self) -> np.ndarray:
         t = self.traffic
+        if isinstance(t, dict):
+            from ..workloads import scenario_matrix
+
+            return scenario_matrix(self.spec, t["model"], t["phase"],
+                                   mesh=t["mesh"])
         if isinstance(t, str):
             return traffic_matrix(self.spec, t)
         if isinstance(t, (list, tuple)) and t and isinstance(t[0], str):
@@ -164,10 +174,19 @@ class NocProblem:
     def mesh(self) -> Design:
         return self.spec.mesh_design()
 
-    def context(self, ev: Evaluator) -> PhvContext:
+    def context(self, ev: Evaluator, *,
+                phv_backend: str = "host") -> PhvContext:
         """PHV context normalized by the mesh design (costs one
-        evaluation)."""
-        return PhvContext(ev(self.mesh()), CASES[self.case])
+        evaluation).
+
+        ``phv_backend`` is a context knob (not a problem field — problems
+        hash by canonical JSON): ``"device"`` opts the batched chain-step
+        scorer into the f32 twin on the evaluator's device (see
+        :class:`PhvContext`)."""
+        return PhvContext(ev(self.mesh()), CASES[self.case],
+                          phv_backend=phv_backend,
+                          device=ev.device if phv_backend == "device"
+                          else None)
 
     @property
     def obj_idx(self) -> tuple[int, ...]:
@@ -180,6 +199,9 @@ class NocProblem:
             traffic: Any = {"app": t}
         elif isinstance(t, (list, tuple)) and t and isinstance(t[0], str):
             traffic = {"avg": list(t)}
+        elif isinstance(t, dict):
+            traffic = {"model": t["model"], "phase": t["phase"],
+                       "mesh": list(t["mesh"])}
         else:
             traffic = {"matrix": np.asarray(t, dtype=np.float64).tolist()}
         return {"spec": dataclasses.asdict(self.spec), "traffic": traffic,
@@ -192,7 +214,7 @@ class NocProblem:
         if "app" in t:
             traffic: Any = t["app"]
         elif "model" in t:
-            traffic = dict(t)
+            traffic = {k: t[k] for k in ("model", "phase", "mesh") if k in t}
         elif "avg" in t:
             traffic = tuple(t["avg"])
         else:
@@ -241,8 +263,8 @@ class BudgetedEvaluator:
     same threshold, so for them the guard can only fire on their very first
     dispatch (issued before their own loop-top check) — i.e. only when the
     budget was already spent at entry, where an empty result is accurate —
-    and never alters the driver's own run. It enforces ``max_calls``
-    uniformly.
+    and never alters the driver's own run. It backstops drivers without
+    native budget support (e.g. PCBB) and enforces ``max_calls`` uniformly.
     """
 
     def __init__(self, ev: Evaluator, budget: Budget):
@@ -539,9 +561,12 @@ def run(
     # The fallback Pareto set is only worth maintaining when the guard can
     # fire with designs already recorded: under a pure max_evals budget the
     # native drivers admit the guard only on their first dispatch (nothing
-    # recorded yet), so only a max_calls limit justifies the per-record
-    # merge upkeep.
-    guard_can_fire = budget.max_calls is not None
+    # recorded yet — the fallback would be empty regardless), so only a
+    # max_calls limit or a driver without native budget support (PCBB)
+    # justifies the per-record merge upkeep.
+    guard_can_fire = (
+        (budget.max_evals is not None and not entry.native_max_evals)
+        or budget.max_calls is not None)
 
     recorder = None
     exhausted = False

@@ -1,6 +1,9 @@
 """Kernels of the port on the card: each against its plain version on the
-same CUDA tensors, the evaluator on the card against the CPU, and the
-smoke-size hybrid served on the card against the CPU.
+same CUDA tensors, the evaluator on the card against the CPU, the two
+device twins (NSGA-II rank/crowding, batched PHV) on the card against the
+host, the multi-start search on the card against the CPU, the trace link
+report's K4 against its plain version, and the smoke-size hybrid served on
+the card against the CPU.
 
 Marked ``cuda``: without a card every test skips (decided inside the
 fixture, never at import). On a machine with one:
@@ -324,3 +327,84 @@ def test_smoke_hybrid_generates_the_same_tokens_on_card_and_cpu(dev):
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
+
+
+def test_rank_twin_on_card_matches_numpy(dev):
+    from repro_torch.core.nsga2 import rank_and_crowding
+
+    rng = np.random.default_rng(0)
+    for _ in range(20):
+        n = int(rng.integers(2, 65))
+        m = int(rng.integers(1, 5))
+        objs = rng.integers(0, 4, size=(n, m)).astype(np.float64)
+        r_np, c_np = rank_and_crowding(objs, "numpy")
+        r_d, c_d = rank_and_crowding(objs, "device", device=dev)
+        assert np.array_equal(r_np, r_d)
+        fin = np.isfinite(c_np)
+        assert np.array_equal(fin, np.isfinite(c_d))
+        np.testing.assert_allclose(c_d[fin], c_np[fin], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_phv_twin_on_card_matches_host(dev, m):
+    from repro_torch.core.pareto import hypervolume_with_batch
+    from repro_torch.core.phv_torch import hypervolume_with_batch_torch
+
+    rng = np.random.default_rng(m)
+    ref = np.full(m, 1.6)
+    pts = rng.uniform(0.2, 1.5, size=(9, m))
+    pts = np.vstack([pts, pts[:2]])
+    cands = rng.uniform(0.1, 1.9, size=(13, m))
+    got = hypervolume_with_batch_torch(pts, cands, ref, device=dev)
+    np.testing.assert_allclose(got, hypervolume_with_batch(pts, cands, ref),
+                               rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stage_batch_card_matches_cpu(dev, seed):
+    """spec_tiny multi-start MOO-STAGE (2 starts, 4 local steps, 500
+    evaluations) on the card against the CPU: the same front, or a
+    knife-edge whose replay on the CPU's rows is the CPU's run."""
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+    from repro_torch.noc.parity import hold_runs
+
+    problem = NocProblem(spec=named_spec("tiny"), traffic="BFS",
+                         case="case5")
+    config = {"n_starts": 2, "max_local_steps": 4}
+
+    def on(ev):
+        return run(problem, "stage_batch", Budget(max_evals=500, seed=seed),
+                   config=config, ev=ev)
+
+    hold_runs(on, lambda: problem.evaluator(device=dev),
+              on, lambda: problem.evaluator(device="cpu"), 1e-5)
+
+
+def test_trace_link_report_walk_matches_plain_on_card(dev):
+    from repro_torch.workloads import (link_walk_inputs, trace_for,
+                                       trace_link_report)
+
+    spec = spec_64()
+    design = random_design(spec, np.random.default_rng(3))
+    trace = trace_for("yi-6b", "serving")
+    consts, nh, phases = link_walk_inputs(spec, design, trace, device=dev)
+    for _, f in phases:
+        # As every K4 check holds it: hops, delay and all_done bit-equal to
+        # the plain version on the card, util and visits bit-equal to the
+        # plain version on the CPU (the card's plain version adds in
+        # another order).
+        got = ops.walk(nh, f, consts.link_delay, consts.max_hops)
+        want = ref.walk_ref(nh, f, consts.link_delay, consts.max_hops)
+        cpu = ref.walk_ref(nh.cpu(), f.cpu(), consts.link_delay.cpu(),
+                           consts.max_hops)
+        for i in (0, 1, 4):
+            assert torch.equal(got[i], want[i])
+        for i in (2, 3):
+            assert torch.equal(got[i].cpu(), cpu[i])
+    before = ops.launches()["walk"]
+    card = trace_link_report(spec, design, trace, device=dev)
+    assert ops.launches()["walk"] - before == len(trace.phases)
+    cpu = trace_link_report(spec, design, trace, device="cpu")
+    np.testing.assert_allclose(card["util"], cpu["util"], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(card["visits"], cpu["visits"], rtol=1e-5,
+                               atol=0)

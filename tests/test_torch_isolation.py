@@ -27,7 +27,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch, repro_torch.noc, repro_torch.core, "
         "repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
-        "import repro_torch.noc.cli\n"
+        "import repro_torch.noc.cli, repro_torch.noc.parity\n"
+        "import repro_torch.workloads, repro_torch.core.netsim\n"
+        "import repro_torch.core.amosa, repro_torch.core.nsga2\n"
+        "import repro_torch.core.pcbb, repro_torch.core.agnostic\n"
+        "import repro_torch.core.phv_torch\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serve\n"
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -22,7 +22,7 @@ from repro_torch.core.objectives import CASES
 from repro_torch.core.pareto import PhvContext
 from repro_torch.core.problem import spec_tiny
 from repro_torch.core.stage import moo_stage
-from repro_torch.core.traffic import traffic_matrix
+from repro_torch.core.traffic import TrafficValidationError, traffic_matrix
 from repro_torch.noc import Budget, NocProblem, RunResult, named_spec, run
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -93,8 +93,14 @@ def test_problem_knobs_and_unported_traffic():
         NocProblem(spec=spec, backend="jnp")
     with pytest.raises(ValueError, match="'auto'"):
         NocProblem(spec=spec, forest_backend="pallas")
-    with pytest.raises(NotImplementedError):
-        NocProblem(spec=spec, traffic={"model": "gemma3-1b"})
+    # Model-derived traffic is ported: the scenario is canonicalised as the
+    # reference does it, and an unknown model is rejected at construction.
+    model = NocProblem(spec=spec, traffic={"model": "gemma3-1b"})
+    assert model.to_json()["traffic"] == ref_noc.NocProblem(
+        spec=ref_noc.named_spec("tiny"),
+        traffic={"model": "gemma3-1b"}).to_json()["traffic"]
+    with pytest.raises(TrafficValidationError):
+        NocProblem(spec=spec, traffic={"model": "no-such-model"})
     with pytest.raises(ValueError, match="'fused'"):
         run(NocProblem(spec=spec), "stage",
             config={"meta_backend": "fused-pallas"}, device="cpu")
