@@ -88,6 +88,31 @@ def score_block_max_ref(thr, feat, child, value, xm, xs, x, n_real: int,
     return vals[j], j.to(torch.int32)
 
 
+def index_add_in_order(out: torch.Tensor, idx: torch.Tensor,
+                       src: torch.Tensor, rounds: bool | None = None) -> None:
+    """``out[idx[i]] += src[i]`` on a 1-D ``out`` for i ascending: the
+    addends of one index sum in the order they are given. index_add_ does
+    so on the CPU; on CUDA it adds with atomics in no fixed order. There
+    (or with ``rounds=True``) the adds run in rounds, round k adding the
+    k-th addend of each index, so no round holds an index twice."""
+    if rounds is None:
+        rounds = out.device.type != "cpu"
+    if not rounds or idx.numel() == 0:
+        out.index_add_(0, idx, src)
+        return
+    order = torch.sort(idx, stable=True).indices
+    s = idx[order]
+    pos = torch.arange(s.numel(), device=s.device)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - start
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k
+        out.index_add_(0, idx[sel], src[sel])
+
+
 def walk_ref(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
              max_hops: int):
     """Batched deterministic path walk.
@@ -117,8 +142,8 @@ def walk_ref(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
 
     # In-tree flows toward each destination, leaves in: a node one hop
     # further hands its (final) flow to its parent, children ascending —
-    # index_add_ on a 1-D view adds in index order, which is (b, v, d)
-    # row-major, i.e. v ascending for a fixed parent.
+    # the adds run in index order, which is (b, v, d) row-major, i.e. v
+    # ascending for a fixed parent.
     flow = f.clone()
     flat = flow.view(-1)
     hopsl = hops.long()
@@ -128,15 +153,16 @@ def walk_ref(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
                                    as_tuple=True)
         if bi.numel():
             pi = nhl[bi, vi, di]
-            flat.index_add_(0, (bi * n + pi) * n + di, flow[bi, vi, di])
+            index_add_in_order(flat, (bi * n + pi) * n + di,
+                               flow[bi, vi, di])
 
     off = ~torch.eye(n, dtype=torch.bool, device=dev)[None].expand(bsz, n, n)
     bi, ui, di = torch.nonzero(off, as_tuple=True)
     src = flow[bi, ui, di]
     util = torch.zeros(bsz * n * n, dtype=torch.float32, device=dev)
-    util.index_add_(0, (bi * n + ui) * n + nhl[bi, ui, di], src)
+    index_add_in_order(util, (bi * n + ui) * n + nhl[bi, ui, di], src)
     vis = torch.zeros(bsz * n, dtype=torch.float32, device=dev)
-    vis.index_add_(0, bi * n + ui, src)
+    index_add_in_order(vis, bi * n + ui, src)
     col = torch.zeros((bsz, n), dtype=torch.float32, device=dev)
     for s in range(n):                       # sources ascending
         col = col + f[:, s, :]

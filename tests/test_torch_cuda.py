@@ -109,6 +109,23 @@ def test_walk_bit_equal_cpu_plain(dev, spec_fn):
         assert torch.equal(a.cpu(), w)
 
 
+def test_walk_plain_version_on_card_is_the_cpu_plain_version(dev):
+    """The plain walk on the card sums its flows in index order, as on the
+    CPU (no atomics' order): twice bit-identical and bit-equal to the CPU
+    at spec_large (N = 256, up to 255 addends per router)."""
+    spec = spec_large()
+    c, _, _, nh, perm = _tables(spec, dev)
+    f = torch.as_tensor(traffic_matrix(spec, "BFS").astype(np.float32),
+                        device=dev)
+    fs = (f[perm[:, :, None], perm[:, None, :]] * (~c.eye).float()).contiguous()
+    one = ref.walk_ref(nh, fs, c.link_delay, spec.max_hops)
+    two = ref.walk_ref(nh, fs, c.link_delay, spec.max_hops)
+    cpu = ref.walk_ref(nh.cpu(), fs.cpu(), c.link_delay.cpu(), spec.max_hops)
+    for a, b, w in zip(one, two, cpu):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), w)
+
+
 def test_forest_and_score_against_plain(dev):
     spec = spec_16()
     rng = np.random.default_rng(1)
@@ -389,18 +406,15 @@ def test_trace_link_report_walk_matches_plain_on_card(dev):
     trace = trace_for("yi-6b", "serving")
     consts, nh, phases = link_walk_inputs(spec, design, trace, device=dev)
     for _, f in phases:
-        # As every K4 check holds it: hops, delay and all_done bit-equal to
-        # the plain version on the card, util and visits bit-equal to the
-        # plain version on the CPU (the card's plain version adds in
-        # another order).
+        # Every output bit-equal to the plain version on the card and on
+        # the CPU.
         got = ops.walk(nh, f, consts.link_delay, consts.max_hops)
         want = ref.walk_ref(nh, f, consts.link_delay, consts.max_hops)
         cpu = ref.walk_ref(nh.cpu(), f.cpu(), consts.link_delay.cpu(),
                            consts.max_hops)
-        for i in (0, 1, 4):
-            assert torch.equal(got[i], want[i])
-        for i in (2, 3):
-            assert torch.equal(got[i].cpu(), cpu[i])
+        for a, b, w in zip(got, want, cpu):
+            assert torch.equal(a, b)
+            assert torch.equal(a.cpu(), w)
     before = ops.launches()["walk"]
     card = trace_link_report(spec, design, trace, device=dev)
     assert ops.launches()["walk"] - before == len(trace.phases)

@@ -291,6 +291,48 @@ def test_walk_plain_version_sums_in_kernel_order(case):
         assert not bool(got[4].any())
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_index_add_in_order_rounds_equal_index_add(seed):
+    """The rounds the plain walk takes on the card (no index twice in one
+    round, addends of an index in their given order) give the bits of
+    index_add_'s in-order sums, with up to 300 addends per index."""
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, 7, size=2000))
+    src = torch.from_numpy((rng.standard_normal(2000)
+                            * 10.0 ** rng.integers(-3, 4, 2000)).astype(
+                                np.float32))
+    want = torch.zeros(9, dtype=torch.float32)
+    want.index_add_(0, idx, src)
+    got = torch.zeros(9, dtype=torch.float32)
+    ref.index_add_in_order(got, idx, src, rounds=True)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["tiny", "64", "cut"])
+def test_walk_plain_version_in_rounds_sums_in_kernel_order(case,
+                                                           monkeypatch):
+    """The plain walk with its scatter-adds in rounds, as it runs on the
+    card, is bit-equal to the kernel's two-pass order too."""
+    if case == "cut":
+        nh, f, delay = _walk_inputs(spec_16(), 7, n_designs=2)
+        max_hops = 2
+    else:
+        spec = {"tiny": spec_tiny, "64": spec_64}[case]()
+        nh, f, delay = _walk_inputs(spec, 4, n_designs=2)
+        max_hops = spec.max_hops
+    in_order = ref.index_add_in_order
+    monkeypatch.setattr(ref, "index_add_in_order",
+                        lambda out, idx, src: in_order(out, idx, src,
+                                                       rounds=True))
+    got = ref.walk_ref(torch.from_numpy(nh), torch.from_numpy(f),
+                       torch.from_numpy(delay), max_hops)
+    for i in range(nh.shape[0]):
+        want = _walk_two_pass_oracle(nh[i], f[i], delay, max_hops)
+        for a, b in zip(got[:4], want[:4]):
+            assert np.array_equal(a[i].numpy(), b)
+        assert bool(got[4][i]) == want[4]
+
+
 def test_walk_disconnected_design_matches_reference():
     """Only the vertical TSVs: next hops of unreachable pairs follow the
     reference's INF ties, and hops, delays and all_done still agree."""
