@@ -63,7 +63,21 @@ each raising on failure:
      under yi-6b decode traffic and the trace link report of its min-EDP
      design (one K4 call per phase, each held against its plain version,
      the report against the CPU's); the flit simulator on spec_64 (host
-     numpy). The ``kernels`` JSON line lists all six kernels.
+     numpy). The ``kernels`` JSON line lists all six kernels;
+ 12. the fleet (``repro_torch.dist``, ``repro_torch.noc.server``) on
+     phase 3's problem: the spawn cost of a pool of four children;
+     ``stage_dist`` with four workers at 2000 evaluations under the
+     ``serial``, ``process`` and ``cuda`` executors, equal merged results,
+     K1–K4 counted on the in-process executors; spec_tiny W=3 card against
+     CPU, each worker held by ``noc.parity``; a run killed after round 1
+     and resumed from its round checkpoint, byte-identical to the
+     uninterrupted run; three requests of two tenants through the service
+     on a process fleet (a deadline's partial front, a duplicate served
+     from the cache) and the chaos drill of tests/test_server_chaos.py on
+     spec_36 with a spawned server on the card killed and restarted,
+     byte-identical to a fleet never killed; the ``spmd`` evaluator's
+     split rows against the serial evaluator's, and ``stage_dist`` under
+     ``spmd`` against ``serial``.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.
@@ -1191,6 +1205,392 @@ def netsim_host(designs, spec="64", scale=4.0, cycles=3000) -> None:
           f"{r['mean_latency'].ravel().tolist()}")
 
 
+# ------------------------------------------------------------- phase 12
+#: Phase 12's fleet: four workers of one chain each (the StageDistConfig
+#: default) with 4 local steps — with 40, each worker's first local search
+#: spends its share of the budget before the meta search (K2, K3) runs.
+FLEET_CONFIG = {"n_workers": 4, "max_local_steps": 4}
+#: The chaos drill of tests/test_server_chaos.py: request seq 0's worker 0
+#: aborts in round 0 (a crash in the in-process executor), request seq 1's
+#: worker 1 hangs past the shard deadline. Its deadline and hang are
+#: longer on the card (10 s and 12 s against 5 s and 6 s), so that a
+#: spawned server's first shard, which opens its CUDA context, stays inside
+#: the deadline.
+CHAOS_TIMEOUT_S = 10.0
+CHAOS_FAULTS = (
+    {"kind": "abort", "worker_id": 0, "round": 0, "attempt": 0},
+    {"kind": "hang", "worker_id": 100_001, "round": 0, "attempt": 0,
+     "hang_s": 12.0},
+)
+CHAOS_REQ = {"iters_max": 2, "n_swaps": 4, "n_link_moves": 4,
+             "max_local_steps": 5, "n_workers": 2, "sync_every": 1}
+
+
+def _child_ready(t_submit: float, device: str, hold_s: float) -> dict:
+    """In a spawned child: import the port, open the device's context and
+    load the NoC kernels. Returns the child's pid and, on the
+    coordinator's clock from ``t_submit``, when the probe started (the
+    interpreter up) and when each step ended, after holding the child for
+    ``hold_s`` so that the pool's next probe goes to another child."""
+    import os
+
+    t = [time.time()]
+    import torch
+
+    from repro_torch.dist.worker import load_kernels
+
+    t.append(time.time())
+    torch.zeros(1, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t.append(time.time())
+    load_kernels(device)
+    t.append(time.time())
+    time.sleep(hold_s)
+    return {"pid": os.getpid(),
+            "steps_s": [round(x - t_submit, 3) for x in t]}
+
+
+def dist_payload(res) -> str:
+    """tests/test_dist.py's canonical payload: wall clocks zeroed, the
+    driver-naming headers left out; the JSON float encoding of
+    ``RunResult.to_json`` makes it byte-exact."""
+    j = res.to_json()
+    j["history"] = [[0.0] + row[1:] for row in j["history"]]
+    keep = ("problem", "budget", "obj_idx", "designs", "objs", "history",
+            "n_evals", "n_calls", "exhausted")
+    return json.dumps({k: j[k] for k in keep}, sort_keys=True)
+
+
+def fleet_spawn_cost(device="cuda", n_workers=4) -> None:
+    """Phase 12 (a), first: a fresh spawn pool of ``n_workers`` children,
+    each made ready for a shard (the port imported, a context on
+    ``device``, the NoC kernels loaded); what every ``process`` run pays."""
+    from repro_torch.dist.worker import ShardPool
+
+    t0 = time.time()
+    with ShardPool(n_workers) as pool:
+        futs = [pool.submit(_child_ready, time.time(), device, 2.0)
+                for _ in range(n_workers)]
+        ready = [f.result() for f in futs]
+    wall = time.time() - t0
+    print(f"process executor, {n_workers} children spawned together "
+          f"({len({r['pid'] for r in ready})} processes): seconds after "
+          "submission at which each child's interpreter was up, torch and "
+          "the port imported, its context open, the NoC kernels loaded: "
+          f"{[r['steps_s'] for r in ready]}; {wall:.3f} s wall with a 2 s "
+          "hold per child and the pool's shutdown")
+
+
+def fleet_executors(torch, ops, device="cuda", spec="64", max_evals=2000,
+                    executors=("serial", "process", "cuda")) -> dict:
+    """Phase 12 (a): ``stage_dist`` W=4 on spec_64 (BFS, case5) under each
+    executor; the merged results must be equal (designs, objective bytes,
+    accounting, PHV). The in-process executors count K1–K4 over their run
+    alone (the coordinator's merged-PHV anchor included); ``process``
+    counts only that anchor, its workers' launches are in the children.
+    Returns the serial run."""
+    import numpy as np
+
+    from repro_torch.core.evaluate import Evaluator
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec(spec), traffic="BFS", case="case5")
+    out = {}
+    for executor in executors:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = run(problem, "stage_dist", Budget(max_evals=max_evals, seed=0),
+                  config=dict(FLEET_CONFIG, executor=executor),
+                  device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_of(ops)
+        if device != "cpu" and executor != "process":
+            for name in NOC_KERNELS:
+                check(counts[name] > 0,
+                      f"stage_dist {executor}: {name} never launched")
+        phv = res.phv()
+        check(len(res.designs) > 0 and math.isfinite(phv) and phv > 0,
+              f"stage_dist {executor}: front {len(res.designs)}, PHV {phv}")
+        check(not res.extra["worker_failures"],
+              f"stage_dist {executor}: {res.extra['worker_failures']}")
+        print(f"stage_dist spec_{spec} W=4 {executor}: wall {wall:.3f} s, "
+              f"evals {res.n_evals} calls {res.n_calls}, front "
+              f"{len(res.designs)}, phv {phv:.6g}, evals per worker "
+              f"{[w['n_evals'] for w in res.extra['workers']]}, launches "
+              f"{json.dumps(counts)}"
+              + (" (the coordinator's anchor only)"
+                 if executor == "process" else ""))
+        out[executor] = res
+    ser = out[executors[0]]
+    for executor, res in out.items():
+        check(dist_payload(res) == dist_payload(ser)
+              and res.phv() == ser.phv(),
+              f"stage_dist {executor} differs from {executors[0]}")
+    ev_cpu = Evaluator(problem.spec, problem.traffic_matrix(), device="cpu")
+    check(np.allclose(ev_cpu.batch(ser.designs), ser.objs, rtol=ROW_RTOL,
+                      atol=0.0),
+          "stage_dist front re-evaluated on the CPU disagrees")
+    print(f"executors {list(executors)}: merged results equal (designs, "
+          f"objective bytes, evals/calls, history, PHV)")
+    return ser
+
+
+def fleet_card_vs_cpu(torch, ops, device="cuda", max_evals=600,
+                      seeds=(0, 1, 2)) -> None:
+    """Phase 12 (b): spec_tiny ``stage_dist`` W=3 ``serial``, card against
+    CPU. Each worker's shard is held by ``noc.parity.hold_runs`` (the same
+    front, or a knife-edge replayed on the CPU's rows bit for bit); where
+    no worker parts, the merged runs must be equal."""
+    import numpy as np
+
+    from repro_torch.dist import plan_shards
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+    from repro_torch.noc.optimizers import StageDistConfig
+
+    tiny = NocProblem(spec=named_spec("tiny"), traffic="BFS", case="case5")
+    cfg = dict(FLEET_CONFIG, n_workers=3)
+    dcfg = StageDistConfig(**cfg)
+    worker_cfg = {k: getattr(dcfg, k) for k in (
+        "n_starts", "iters_max", "n_swaps", "n_link_moves",
+        "max_local_steps", "forest_kwargs", "forest_backend",
+        "meta_backend")}
+    for seed in seeds:
+        budget = Budget(max_evals=max_evals, seed=seed)
+        parted = []
+        for s in plan_shards(tiny, budget, dcfg.n_workers):
+            _, counts, part = hold_on_card(torch, ops, tiny, "stage_batch",
+                                           s.budget, worker_cfg, device)
+            parted.append(part["parted"])
+            print(f"  seed {seed} worker {s.worker_id}: launches "
+                  f"{json.dumps(counts)}; {parting_text(part)}")
+        runs = {d: run(tiny, "stage_dist", budget, config=cfg, device=d)
+                for d in (device, "cpu")}
+        g, c = runs[device], runs["cpu"]
+        if not any(parted):
+            check([d.key() for d in g.designs] == [d.key()
+                                                   for d in c.designs]
+                  and np.allclose(g.objs, c.objs, rtol=ROW_RTOL, atol=0.0)
+                  and (g.n_evals, g.n_calls) == (c.n_evals, c.n_calls),
+                  f"seed {seed}: equal workers, merged runs differ")
+        print(f"stage_dist spec_tiny W=3 seed {seed}: front "
+              f"{len(g.designs)}, evals {g.n_evals}; "
+              + ("merged runs equal" if not any(parted) else
+                 f"workers parted {parted}, each replayed bit for bit"))
+
+
+def fleet_resume(torch, ops, device="cuda", spec="64", max_evals=2000,
+                 executor="cuda") -> None:
+    """Phase 12 (c): ``stage_dist`` W=4 with ``sync_every=1`` and round
+    checkpoints on spec_64; a ``kill_coordinator`` fault stops the run
+    after round 1 and ``resume=True`` finishes it: byte-identical to the
+    uninterrupted run."""
+    import tempfile
+
+    from repro_torch.dist import CoordinatorKilled
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec(spec), traffic="BFS", case="case5")
+    budget = Budget(max_evals=max_evals, seed=0)
+    cfg = dict(FLEET_CONFIG, sync_every=1, iters_max=3, executor=executor)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ref = run(problem, "stage_dist", budget, config=cfg, device=device)
+    wall = time.perf_counter() - t0
+    counts = launches_of(ops)
+    with tempfile.TemporaryDirectory() as ckdir:
+        killed = False
+        try:
+            run(problem, "stage_dist", budget, config=dict(cfg, faults=(
+                {"kind": "kill_coordinator", "round": 1},)),
+                checkpoint_dir=ckdir, device=device)
+        except CoordinatorKilled:
+            killed = True
+        check(killed, "kill_coordinator did not stop the run")
+        t0 = time.perf_counter()
+        res = run(problem, "stage_dist", budget, config=cfg,
+                  checkpoint_dir=ckdir, resume=True, device=device)
+        resume_wall = time.perf_counter() - t0
+    check(res.extra["resumed_from_round"] == 1,
+          f"resumed from {res.extra['resumed_from_round']}")
+    check(dist_payload(res) == dist_payload(ref),
+          "the resumed run is not the uninterrupted run byte for byte")
+    ck = res.extra["checkpoint"]
+    print(f"stage_dist spec_{spec} W=4 sync_every=1 {executor}: "
+          f"uninterrupted wall {wall:.3f} s, evals {ref.n_evals}, rounds "
+          f"{len(ref.extra['history_spans'])} worker-rounds, launches "
+          f"{json.dumps(counts)}; killed after round 1, resumed in "
+          f"{resume_wall:.3f} s ({ck['n_saves']} round saves, "
+          f"{ck['save_s'] * 1e3:.1f} ms in saves): byte-identical")
+
+
+def fleet_service(torch, ops, device="cuda", spec="64", chaos_spec="36",
+                  executor="process") -> None:
+    """Phase 12 (d): three requests of two tenants on spec_64 through
+    ``Client.local(executor=executor, n_workers=4)`` — one finalised
+    partial by its deadline, one a duplicate served from the cache; then
+    tests/test_server_chaos.py's kill-and-restart contract on spec_36
+    with a ``SubprocessClient`` server on ``device``."""
+    import tempfile
+
+    from repro_torch.noc import Budget, NocProblem, RunResult, named_spec
+    from repro_torch.noc.server import (Client, NocService, ServiceConfig,
+                                        SubprocessClient)
+
+    problem = NocProblem(spec=named_spec(spec), traffic="BFS", case="case5")
+    pj = problem.to_json()
+    req = dict(FLEET_CONFIG, iters_max=3)
+    t0 = time.perf_counter()
+    with Client.local(executor=executor, n_workers=4, device=device) as c:
+        a = c.submit(pj, Budget(max_evals=800, seed=0).to_json(), req,
+                     tenant="alice")
+        b = c.submit(pj, Budget(max_evals=800, seed=1).to_json(), req,
+                     tenant="bob", deadline_s=1e-3)
+        check(a["status"] == b["status"] == "queued", f"{a} {b}")
+        summary = c.drain()
+        ra, rb = c.result(a["id"]), c.result(b["id"])
+        check(isinstance(ra, RunResult) and c.status(a["id"])["status"]
+              == "done" and len(ra.designs) > 0, f"request a: {ra}")
+        check(isinstance(rb, RunResult) and rb.extra.get("partial") is True
+              and c.status(b["id"])["status"] == "partial"
+              and len(rb.designs) > 0, f"request b: {rb}")
+        dup = c.submit({k: pj[k] for k in reversed(list(pj))},
+                       Budget(max_evals=800, seed=0).to_json(), req,
+                       tenant="bob")
+        hit = c.result(dup["id"])
+        check(dup["cache_hit"] is True and hit.n_evals == 0
+              and hit.to_json()["designs"] == ra.to_json()["designs"],
+              f"duplicate not served from the cache: {dup}")
+    wall = time.perf_counter() - t0
+    print(f"service spec_{spec} ({executor}, 4 workers, {device}): "
+          f"{wall:.3f} s for 3 requests of 2 tenants; request a done, "
+          f"evals {ra.n_evals}, front {len(ra.designs)}; request b partial "
+          f"after its deadline, front {len(rb.designs)}, evals "
+          f"{rb.n_evals}; duplicate of a served from the cache (0 evals); "
+          f"waves {summary['wave']}")
+
+    chaos = NocProblem(spec=named_spec(chaos_spec), traffic="BFS",
+                       case="case3")
+    fleet = dict(n_workers=4, shard_timeout_s=CHAOS_TIMEOUT_S,
+                 max_retries=1, device=device)
+
+    def submit_tenants(client):
+        ids = {}
+        for seed in range(4):
+            ack = client.submit(chaos.to_json(),
+                                Budget(max_evals=120, seed=seed).to_json(),
+                                dict(CHAOS_REQ), tenant=f"t{seed}")
+            check(ack.get("status") == "queued", f"chaos submit: {ack}")
+            ids[seed] = ack["id"]
+        return ids
+
+    t0 = time.perf_counter()
+    with Client(NocService(ServiceConfig(faults=CHAOS_FAULTS,
+                                         **fleet))) as ref_client:
+        ref_ids = submit_tenants(ref_client)
+        ref_client.drain()
+        ref = {s: dist_payload(ref_client.result(rid))
+               for s, rid in ref_ids.items()}
+    ref_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as jdir:
+        t0 = time.perf_counter()
+        c1 = SubprocessClient(jdir, faults=CHAOS_FAULTS, **fleet)
+        try:
+            ids = submit_tenants(c1)
+            c1.step()
+            c1.step()          # requests mid-flight, checkpoints on disk
+        finally:
+            c1.kill()          # no flush, no goodbye
+            c1.close()
+        c2 = SubprocessClient(jdir, faults=CHAOS_FAULTS, **fleet)
+        try:
+            c2.drain()
+            results = {}
+            for seed, rid in ids.items():
+                st = c2.status(rid)
+                check(st["status"] == "done", f"chaos request {seed}: {st}")
+                results[seed] = c2.result(rid)
+                check(dist_payload(results[seed]) == ref[seed],
+                      f"chaos request {seed} differs from the fleet that "
+                      "was never killed")
+            f0 = results[0].extra["worker_failures"]
+            f1 = results[1].extra["worker_failures"]
+            check([(f["worker_id"], f["phase"]) for f in f0] == [(0, "run")]
+                  and [(f["worker_id"], f["phase"]) for f in f1]
+                  == [(1, "timeout")]
+                  and not results[2].extra["worker_failures"]
+                  and not results[3].extra["worker_failures"],
+                  f"chaos ledgers: {f0} {f1}")
+        finally:
+            c2.close()
+        wall = time.perf_counter() - t0
+    print(f"chaos spec_{chaos_spec}, 4 tenants, SubprocessClient server on "
+          f"{device} killed after 2 waves and restarted: every request "
+          f"done, byte-identical to the fleet never killed "
+          f"({ref_wall:.3f} s in process; {wall:.3f} s with both servers); "
+          f"the abort charged t0, the hang t1")
+
+
+def fleet_spmd(torch, ops, device="cuda", spec="64", bsz=48,
+               ser=None) -> None:
+    """Phase 12 (e): one spec_64 batch of ``bsz`` designs through the
+    ``spmd`` evaluator (each batch split across every visible card, and
+    split four ways on the first card alone) and the serial one: equal
+    rows. ``ser``, phase (a)'s serial run, is then held against a
+    ``stage_dist`` run under ``spmd``."""
+    import numpy as np
+
+    from repro_torch.core.evaluate import Evaluator
+    from repro_torch.core.problem import random_design
+    from repro_torch.core.traffic import traffic_matrix
+    from repro_torch.dist.worker import split_devices_for
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    s = named_spec(spec)
+    f = traffic_matrix(s, "BFS")
+    rng = np.random.default_rng(12)
+    designs = [s.mesh_design()] + [random_design(s, rng)
+                                   for _ in range(bsz - 1)]
+    devices = split_devices_for(device)
+    ops.reset_launches()
+    split = Evaluator(s, f, device=device, split_devices=devices)
+    rows, aux = split.batch_aux(designs)
+    counts = launches_of(ops)
+    want, want_aux = Evaluator(s, f, device=device).batch_aux(designs)
+    check(np.array_equal(rows, want)
+          and np.array_equal(aux["net_lat"], want_aux["net_lat"]),
+          "spmd rows differ from the serial evaluator's")
+    chunks = min(len(devices), bsz)
+    if device != "cpu":
+        check(counts["minplus"] == counts["walk"] == chunks,
+              f"spmd: {counts} launches for {chunks} chunks")
+    four, four_aux = Evaluator(s, f, device=device,
+                               split_devices=[devices[0]] * 4).batch_aux(
+                                   designs)
+    check(np.array_equal(four, want)
+          and np.array_equal(four_aux["net_lat"], want_aux["net_lat"]),
+          f"rows split four ways on {devices[0]} differ from the serial "
+          "evaluator's")
+    print(f"spmd evaluator, spec_{spec} batch of {bsz} over {len(devices)} "
+          f"device(s) {list(devices)}: rows equal to the serial "
+          f"evaluator's, K1/K4 launches {counts['minplus']}/"
+          f"{counts['walk']}"
+          + ("; one device, so the split was trivial (one chunk)"
+             if len(devices) == 1 else "")
+          + f"; split four ways on {devices[0]}: rows equal too")
+    if ser is not None:
+        problem = NocProblem(spec=s, traffic="BFS", case="case5")
+        res = run(problem, "stage_dist", Budget(max_evals=2000, seed=0),
+                  config=dict(FLEET_CONFIG, executor="spmd"), device=device)
+        check(dist_payload(res) == dist_payload(ser)
+              and res.phv() == ser.phv(),
+              "stage_dist spmd differs from serial")
+        print("stage_dist spec_64 W=4 spmd: merged result equal to "
+              "serial's")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -1526,6 +1926,16 @@ def main(argv: list[str]) -> int:
     agnostic_on_card()
     workloads_on_card(torch, ops, ref)
     netsim_host([pick_min_edp(None, main_res.designs, main_res.objs)[0]])
+
+    # ------------------------------------------------------------ phase 12
+    phase("12 the fleet: stage_dist executors, resume, service, spmd")
+    print(f"card: {card}")
+    fleet_spawn_cost()
+    fleet_ser = fleet_executors(torch, ops)
+    fleet_card_vs_cpu(torch, ops)
+    fleet_resume(torch, ops)
+    fleet_service(torch, ops)
+    fleet_spmd(torch, ops, ser=fleet_ser)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,6 +9,14 @@ versions.
 PyTorch runs eagerly, so batches are not padded to a power of two; the
 chunking by ``max_batch`` is the reference's, so ``n_evals`` and ``n_calls``
 count the same over the same calls.
+
+``split_devices`` is the data-parallel form the distributed ``spmd``
+executor uses (the reference's multi-device ``shard_map`` evaluator): each
+batch is cut into contiguous chunks, one per device in the list, each
+chunk evaluated on its device, and the rows concatenated in order. Each
+design's rows do not depend on the other designs of its batch, so the
+rows are the unsplit evaluator's; one batch still counts as one call. On
+one card the split has one chunk.
 """
 
 from __future__ import annotations
@@ -42,12 +50,15 @@ class Evaluator:
     def __init__(self, spec: SystemSpec, f: np.ndarray, *,
                  backend: str = "auto", device: str | torch.device | None = None,
                  max_batch: int | None = 256, delta: str = "auto",
-                 table_cache_bytes: int = 256 << 20):
+                 table_cache_bytes: int = 256 << 20,
+                 split_devices=None):
         if delta not in DELTA_MODES:
             raise ValueError(f"delta must be one of {DELTA_MODES}, got {delta!r}")
         self.spec = spec
         self.backend = routing.resolve_backend(backend)
         self.device = resolve_device(device)
+        self.split_devices = (tuple(resolve_device(d) for d in split_devices)
+                              if split_devices else None)
         n = spec.n_tiles
         if max_batch is not None:
             # Chunk bound for the batched transient: at 64 tiles a
@@ -60,13 +71,22 @@ class Evaluator:
         self.consts: SpecConsts = make_consts(spec, str(self.device))
         self.f = torch.as_tensor(np.asarray(f, dtype=np.float32),
                                  device=self.device)
+        # (device, consts, traffic) per chunk of a split batch.
+        self._parts = [
+            (d, self.consts, self.f) if d == self.device else
+            (d, make_consts(spec, str(d)),
+             torch.as_tensor(np.asarray(f, dtype=np.float32), device=d))
+            for d in self.split_devices or ()]
         # Incremental move evaluation (batch_moves): swap candidates reuse
         # the base design's tables verbatim (adjacency is slot-keyed, a swap
         # only permutes cores); link moves get an O(N²) table delta
-        # (routing.delta_link_move) instead of a full APSP.
+        # (routing.delta_link_move) instead of a full APSP. Off for a split
+        # evaluator, whose chunks recompute their tables on their devices.
         self.delta_mode = delta
-        self.delta_on = (delta == "on"
-                         or (delta == "auto" and n >= DELTA_AUTO_MIN_TILES))
+        self.delta_on = (self.split_devices is None
+                         and (delta == "on"
+                              or (delta == "auto"
+                                  and n >= DELTA_AUTO_MIN_TILES)))
         self._tab_cache: OrderedDict[bytes, routing.HostTables] = OrderedDict()
         self._tab_cache_nbytes = 0
         self._tab_cache_max_bytes = int(table_cache_bytes)
@@ -75,9 +95,10 @@ class Evaluator:
         self.n_evals = 0  # evaluation counter (search-cost accounting)
         self.n_calls = 0  # device passes (batching-efficiency accounting)
 
-    def _to_dev(self, arrays, dtype) -> torch.Tensor:
+    def _to_dev(self, arrays, dtype, device=None) -> torch.Tensor:
         return torch.as_tensor(np.stack(arrays), dtype=dtype,
-                               device=self.device)
+                               device=self.device if device is None
+                               else device)
 
     # ------------------------------------------------------------- single
     def __call__(self, d: Design) -> np.ndarray:
@@ -98,17 +119,34 @@ class Evaluator:
             return (np.concatenate(outs, axis=0),
                     {k: np.concatenate([a[k] for a in auxes], axis=0)
                      for k in auxes[0]})
-        perms = self._to_dev([d.perm for d in designs], torch.int64)
-        adjs = self._to_dev([d.adj for d in designs], torch.bool)
-        costs = design_cost(self.consts, adjs)
-        dist, nh = routing.routing_tables_batched(costs,
-                                                  self.consts.apsp_iters)
-        objs, aux = evaluate_with_tables(self.consts, perms, adjs, self.f,
-                                         dist, nh)
+        if self.split_devices is None:
+            outs = [self._dense(self.device, self.consts, self.f, designs)]
+        else:
+            # Contiguous chunks, the first len % ndev one design longer;
+            # every chunk is launched before any result is read back, so
+            # the devices run at once.
+            base, rem = divmod(len(designs), len(self._parts))
+            outs, lo = [], 0
+            for i, (dev, consts, f) in enumerate(self._parts):
+                hi = lo + base + (1 if i < rem else 0)
+                if hi > lo:
+                    outs.append(self._dense(dev, consts, f, designs[lo:hi]))
+                lo = hi
         self.n_evals += len(designs)
         self.n_calls += 1
-        aux = {k: v.cpu().numpy() for k, v in aux.items()}
-        return objs.cpu().numpy().astype(np.float64), aux
+        objs = np.concatenate([o.cpu().numpy() for o, _ in outs], axis=0)
+        aux = {k: np.concatenate([a[k].cpu().numpy() for _, a in outs],
+                                 axis=0) for k in outs[0][1]}
+        return objs.astype(np.float64), aux
+
+    def _dense(self, device, consts, f, designs):
+        """Cost build → APSP (K1) → next hops → walk (K4) → objectives for
+        ``designs`` on ``device``; returns the device tensors."""
+        perms = self._to_dev([d.perm for d in designs], torch.int64, device)
+        adjs = self._to_dev([d.adj for d in designs], torch.bool, device)
+        costs = design_cost(consts, adjs)
+        dist, nh = routing.routing_tables_batched(costs, consts.apsp_iters)
+        return evaluate_with_tables(consts, perms, adjs, f, dist, nh)
 
     # -------------------------------------------------------------- moves
     def batch_moves(self, moves) -> np.ndarray:

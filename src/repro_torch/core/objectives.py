@@ -17,6 +17,7 @@ a batch dimension in front of every per-design array.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -120,10 +121,23 @@ def design_cost_np(spec: SystemSpec, adj: np.ndarray) -> np.ndarray:
     return cost
 
 
-def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Per-design sum of ``x`` over ``mask`` (zeros elsewhere)."""
-    return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
-                                            device=x.device)).sum(dim=(1, 2))
+def _fixed_sum(x: torch.Tensor, dims: int) -> torch.Tensor:
+    """Per-row sum of ``x`` over its last ``dims`` dimensions in one fixed
+    order: the row, zero-padded to a power of two, is halved by pairwise
+    adds until one term is left. The order depends on the row's length
+    alone. PyTorch's CUDA reductions split a row across blocks according
+    to how many rows there are, so their bits change with the batch: a
+    design's objectives would differ between a batch and its chunks (the
+    ``spmd`` split) or between two batch sizes."""
+    x = x.reshape(*x.shape[:x.dim() - dims], -1)
+    n = x.shape[-1]
+    pad = (1 << max(0, (n - 1).bit_length())) - n
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 # ------------------------------------------------- the reference's order
@@ -249,27 +263,42 @@ def _tail_host_order(c: SpecConsts, full_adj, adj, f_slots, hops, delay,
 
 def _tail_device(c: SpecConsts, full_adj, adj, f_slots, hops, delay,
                  util_d, visits, pair_cpu_llc, power_slot):
-    """umean, ustd, lat, energy, temp and net_lat with PyTorch's
-    reductions (Eqs. 1-10)."""
-    bsz, n, _ = f_slots.shape
-    # ---- Eq. 1: CPU<->LLC latency ------------------------------------------
+    """umean, ustd, lat, energy, temp and net_lat (Eqs. 1-10), every sum in
+    :func:`_fixed_sum`'s order, so that a design's rows do not depend on
+    the batch it is evaluated in."""
+    bsz = f_slots.shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=f_slots.device)
     path_lat = (c.router_stages * hops).float() + delay
-    lat = _masked_sum(path_lat * f_slots, pair_cpu_llc) / (c.n_cpu * c.n_llc)
-
-    # ---- Eqs. 2-4: link-utilization mean / std -----------------------------
+    lat_f = path_lat * f_slots
     util_u = util_d + util_d.transpose(1, 2)
     link_mask = full_adj & c.upper
-    umean = _masked_sum(util_u, link_mask) / c.n_links
+    planar = adj & ~c.vadj
+    # The sums that need nothing but the walk, in one pass: Eq. 1's
+    # CPU<->LLC latency, the links' utilization (Eq. 2), the planar and
+    # vertical link energy terms (Eq. 10), and net_lat's two.
+    sums = _fixed_sum(torch.stack([
+        torch.where(pair_cpu_llc, lat_f, zero),
+        torch.where(link_mask, util_u, zero),
+        torch.where(planar, util_u * c.manhattan, zero),
+        torch.where(c.vadj, util_u, zero),
+        f_slots,
+        lat_f,
+    ], dim=1), 2)
+
+    # ---- Eq. 1: CPU<->LLC latency ------------------------------------------
+    lat = sums[:, 0] / (c.n_cpu * c.n_llc)
+
+    # ---- Eqs. 2-4: link-utilization mean / std -----------------------------
+    umean = sums[:, 1] / c.n_links
     dev2 = (util_u - umean[:, None, None]) ** 2
-    uvar = _masked_sum(dev2, link_mask) / c.n_links
+    uvar = _fixed_sum(torch.where(link_mask, dev2, zero), 2) / c.n_links
     ustd = torch.sqrt(uvar + 1e-12)
 
     # ---- Eqs. 8-10: energy --------------------------------------------------
     degree = full_adj.sum(dim=2) + 1                     # +1 local port
-    e_router = E_ROUTER_PORT * (visits * degree).sum(dim=1)
-    planar = adj & ~c.vadj
-    e_planar = E_PLANAR_MM * _masked_sum(util_u * c.manhattan, planar) / 2.0
-    e_vert = E_VERTICAL * _masked_sum(util_u, c.vadj.expand(bsz, n, n)) / 2.0
+    e_router = E_ROUTER_PORT * _fixed_sum(visits * degree, 1)
+    e_planar = E_PLANAR_MM * sums[:, 2] / 2.0
+    e_vert = E_VERTICAL * sums[:, 3] / 2.0
     energy = e_router + e_planar + e_vert
 
     # ---- Eqs. 5-7: thermal --------------------------------------------------
@@ -281,15 +310,16 @@ def _tail_device(c: SpecConsts, full_adj, adj, f_slots, hops, delay,
     i_idx = torch.arange(1, c.n_layers + 1, dtype=torch.float32,
                          device=f_slots.device)
     weighted = p_stack * (i_idx * R_LAYER + R_BASE)[None, None, :]
-    t_nk = torch.cumsum(weighted, dim=2)                 # Eq. 5 (T_{n,k})
+    # Eq. 5 (T_{n,k}): a running sum over the layers, in layer order.
+    t_nk = torch.stack(list(itertools.accumulate(weighted.unbind(dim=2))),
+                       dim=2)
     dT_k = t_nk.amax(dim=1) - t_nk.amin(dim=1)           # Eq. 6
     temp = t_nk.amax(dim=(1, 2)) * dT_k.amax(dim=1)      # Eq. 7
     objs = torch.stack([umean, ustd, lat, energy, temp], dim=1)
 
     # Network-wide average packet latency (all pairs, f-weighted) — the
     # paper's network-EDP metric (§6.1), not a search objective.
-    total_f = f_slots.sum(dim=(1, 2)) + 1e-12
-    net_lat = (path_lat * f_slots).sum(dim=(1, 2)) / total_f
+    net_lat = sums[:, 5] / (sums[:, 4] + 1e-12)
     return objs, net_lat
 
 

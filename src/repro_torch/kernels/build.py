@@ -21,6 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("minplus", "forest", "walk", "flash_attention", "ssd")
+#: The sources of the NoC kernels K1-K4, which every search on a card runs.
+NOC_SOURCES = ("minplus", "forest", "walk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,16 +50,17 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h}.so"
 
 
-def build_all() -> dict[str, float]:
-    """Compile every source that is not yet built, one ``nvcc`` per source,
-    all started together. Returns the wall seconds per source built."""
+def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, float]:
+    """Compile every source among ``names`` that is not yet built, one
+    ``nvcc`` per source, all started together. Returns the wall seconds per
+    source built."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
-    for name in SOURCES:
+    for name in names:
         out = _target(name)
         if out.exists():
             continue
@@ -91,6 +94,16 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def load(names: tuple[str, ...]) -> None:
+    """Build the missing libraries among ``names`` together and load them.
+    A coordinator calls this before it starts worker processes, so that
+    each child only loads the libraries and no child starts ``nvcc``."""
+    with _lock:
+        build_all(tuple(n for n in names if n not in _libs))
+    for name in names:
+        library(name)
 
 
 def sass_counts(name: str, opcodes=("HMMA", "HGMMA")) -> dict[str, int]:

@@ -7,7 +7,8 @@
     result.save("run.json")     # the reference's RunResult JSON format
 
 ``run`` executes on ``device="cuda"`` unless told otherwise.
-CLI: ``python -m repro_torch.noc run`` (see repro_torch.noc.cli).
+CLI: ``python -m repro_torch.noc run`` (see repro_torch.noc.cli); the
+multi-tenant service is :mod:`repro_torch.noc.server`.
 """
 
 from .api import (Budget, BudgetedEvaluator, BudgetExhausted, NocProblem,
@@ -15,14 +16,14 @@ from .api import (Budget, BudgetedEvaluator, BudgetExhausted, NocProblem,
                   named_spec, run)
 from .optimizers import (OPTIMIZERS, AmosaConfig, LocalConfig, Nsga2Config,
                          OptimizerEntry, PcbbConfig, StageBatchConfig,
-                         StageConfig, get_optimizer, make_config,
-                         optimizer_names, register)
+                         StageConfig, StageDistConfig, get_optimizer,
+                         make_config, optimizer_names, register)
 
 __all__ = [
     "AmosaConfig", "Budget", "BudgetExhausted", "BudgetedEvaluator",
     "LocalConfig", "NocProblem", "Nsga2Config", "OPTIMIZERS",
     "OptimizerEntry", "PcbbConfig", "RunRecorder", "RunResult",
-    "StageBatchConfig", "StageConfig", "design_from_json", "design_to_json",
-    "get_optimizer", "make_config", "named_spec", "optimizer_names",
-    "register", "run",
+    "StageBatchConfig", "StageConfig", "StageDistConfig", "design_from_json",
+    "design_to_json", "get_optimizer", "make_config", "named_spec",
+    "optimizer_names", "register", "run",
 ]

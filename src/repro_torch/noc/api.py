@@ -537,6 +537,8 @@ def run(
     ev: Evaluator | None = None,
     ctx: PhvContext | None = None,
     track_phv: bool = False,
+    checkpoint_dir: str | None = None,
+    resume: bool = False,
     device=None,
 ) -> RunResult:
     """Run ``optimizer`` (a registry name — see
@@ -548,12 +550,48 @@ def run(
     recorded evaluation. ``ev``/``ctx`` inject a prebuilt evaluator/PHV
     context; by default both are built fresh on ``device`` (default
     ``"cuda"``; raises when no card is present).
+
+    ``checkpoint_dir``/``resume`` enable crash-safe per-round checkpoints
+    for coordinator optimizers that support them (``stage_dist`` with
+    ``sync_every >= 1``): state is persisted atomically after every sync
+    round, and ``resume=True`` restores the latest round and continues,
+    byte-identical to the uninterrupted run.
     """
     from .optimizers import get_optimizer, make_config
 
     entry = get_optimizer(optimizer)
     budget = budget or Budget()
     cfg = make_config(entry, config)
+
+    if checkpoint_dir is not None or resume:
+        if not entry.owns_result or not hasattr(cfg, "checkpoint_dir"):
+            raise ValueError(
+                f"optimizer {entry.name!r} does not support checkpoint_dir/"
+                "resume (round checkpoints are a coordinator feature)")
+        updates: dict[str, Any] = {}
+        if checkpoint_dir is not None:
+            updates["checkpoint_dir"] = checkpoint_dir
+        if resume:
+            updates["resume"] = True
+        # replace() re-runs __post_init__, so the knob combination is
+        # validated exactly as if it had been in `config` to begin with.
+        cfg = dataclasses.replace(cfg, **updates)
+
+    if entry.owns_result:
+        # Coordinator drivers (e.g. "stage_dist") run their evaluations on
+        # evaluators this function cannot see — other processes or
+        # devices — so they own accounting, history, and budget
+        # enforcement and return a complete RunResult. No evaluator is
+        # built here: the workers build their own.
+        if ev is not None or ctx is not None:
+            raise ValueError(
+                f"optimizer {entry.name!r} owns its RunResult; ev=/ctx= "
+                "injection is not supported (workers build their own)")
+        if callback is not None or track_phv:
+            raise ValueError(
+                f"optimizer {entry.name!r} owns its RunResult; callback=/"
+                "track_phv= are not supported across worker boundaries")
+        return entry.run_fn(problem, budget, cfg, device)
 
     base_ev = ev if ev is not None else problem.evaluator(device=device)
     n_evals0, n_calls0 = base_ev.n_evals, base_ev.n_calls

@@ -8,11 +8,18 @@
     PYTHONPATH=src python -m repro_torch.noc compare --spec tiny --app BFS \
         --optimizers stage,amosa,nsga2 --max-evals 600
     PYTHONPATH=src python -m repro_torch.noc agnostic --spec 16 --apps BFS,BP,CDN
+    PYTHONPATH=src python -m repro_torch.noc run --spec 64 --case case5 \
+        --optimizer stage_dist --workers 4 --set executor=process \
+        --max-evals 2000
+    PYTHONPATH=src python -m repro_torch.noc serve --journal-dir J \
+        --workers 4 --executor process
 
 ``run`` executes one optimizer and prints (optionally saves) a RunResult;
 ``compare`` runs several optimizers on one problem at an equal budget;
-``agnostic`` reproduces the Fig. 9 cross-execution study. ``--device``
-picks the device (default ``cuda``; there is no fallback to the CPU).
+``agnostic`` reproduces the Fig. 9 cross-execution study; ``serve`` runs
+the multi-tenant optimization service over stdin/stdout JSON lines
+(:mod:`repro_torch.noc.server`). ``--device`` picks the device (default
+``cuda``; there is no fallback to the CPU).
 Optimizer config overrides are ``--set key=value`` (repeatable; values
 parsed as Python literals, e.g. ``--set iters_max=3``).
 """
@@ -98,8 +105,22 @@ def cmd_run(args) -> int:
     budget = Budget(max_evals=args.max_evals, max_calls=args.max_calls,
                     seed=args.seed)
     overrides = _parse_overrides(args.set)
+    if args.workers is not None:
+        if args.optimizer != "stage_dist":
+            raise SystemExit(
+                f"--workers only applies to --optimizer stage_dist "
+                f"(got {args.optimizer!r})")
+        overrides["n_workers"] = args.workers
+    if (args.checkpoint_dir or args.resume) \
+            and args.optimizer != "stage_dist":
+        raise SystemExit(
+            f"--checkpoint-dir/--resume only apply to --optimizer "
+            f"stage_dist (got {args.optimizer!r})")
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
     res = run(problem, args.optimizer, budget=budget,
-              config=overrides or None, device=args.device)
+              config=overrides or None, checkpoint_dir=args.checkpoint_dir,
+              resume=args.resume, device=args.device)
     if not args.quiet:
         print(_summary_line(res))
         for d_obj in np.asarray(res.objs):
@@ -165,6 +186,24 @@ def cmd_agnostic(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    import json
+
+    from .server import NocService, ServiceConfig, serve_stdio
+
+    faults = tuple(json.loads(args.faults)) if args.faults else ()
+    cfg = ServiceConfig(
+        n_workers=args.workers, executor=args.executor,
+        journal_dir=args.journal_dir, max_queue=args.max_queue,
+        max_inflight_per_tenant=args.tenant_cap,
+        shard_timeout_s=args.shard_timeout, max_retries=args.max_retries,
+        retry_backoff_s=args.retry_backoff, cache=not args.no_cache,
+        keep_completed=args.keep_completed, faults=faults,
+        device=args.device)
+    serve_stdio(NocService(cfg))
+    return 0
+
+
 def _problem_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--spec", default="tiny",
                     help="system spec: tiny|16|36|64 (default tiny)")
@@ -209,6 +248,17 @@ def main(argv: list[str] | None = None) -> int:
                         help=f"one of {', '.join(optimizer_names())}")
     ap_run.add_argument("--set", action="append", default=[],
                         metavar="KEY=VALUE", help="optimizer config override")
+    ap_run.add_argument("--workers", type=int, default=None,
+                        help="stage_dist worker count (shorthand for "
+                             "--set n_workers=K; shards the budget, merges "
+                             "by Pareto union)")
+    ap_run.add_argument("--checkpoint-dir", default=None,
+                        help="stage_dist only: persist coordinator state "
+                             "after every sync round (crash-safe atomic "
+                             "writes; requires --set sync_every>=1)")
+    ap_run.add_argument("--resume", action="store_true",
+                        help="stage_dist only: restore the latest round "
+                             "from --checkpoint-dir and continue")
     _device_arg(ap_run)
     ap_run.add_argument("--out", default=None, help="save RunResult JSON")
     ap_run.add_argument("--smoke", action="store_true",
@@ -241,6 +291,36 @@ def main(argv: list[str] | None = None) -> int:
     ap_ag.add_argument("--seed", type=int, default=0)
     _device_arg(ap_ag)
     ap_ag.set_defaults(fn=cmd_agnostic)
+
+    ap_srv = sub.add_parser(
+        "serve",
+        help="multi-tenant optimization service (stdio JSON lines)")
+    ap_srv.add_argument("--journal-dir", default=None,
+                        help="crash-safe request journal directory; "
+                             "restarting against it resumes in-flight "
+                             "requests (omit = no persistence)")
+    ap_srv.add_argument("--workers", type=int, default=4,
+                        help="shared fleet size (default 4)")
+    ap_srv.add_argument("--executor", default="serial",
+                        help="serial|process|cuda|spmd (default serial)")
+    ap_srv.add_argument("--max-queue", type=int, default=16,
+                        help="bound on live requests (backpressure)")
+    ap_srv.add_argument("--tenant-cap", type=int, default=2,
+                        help="per-tenant in-flight request cap")
+    ap_srv.add_argument("--shard-timeout", type=float, default=None,
+                        help="per-shard wall deadline, seconds")
+    ap_srv.add_argument("--max-retries", type=int, default=1)
+    ap_srv.add_argument("--retry-backoff", type=float, default=0.0)
+    ap_srv.add_argument("--no-cache", action="store_true",
+                        help="disable the canonical-key result cache")
+    ap_srv.add_argument("--keep-completed", type=int, default=4,
+                        help="completed requests whose round checkpoints "
+                             "are kept (older ones gc'd)")
+    ap_srv.add_argument("--faults", default=None,
+                        help="JSON fault script (chaos drills; see "
+                             "repro_torch.dist.faults)")
+    _device_arg(ap_srv)
+    ap_srv.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
     return args.fn(args)

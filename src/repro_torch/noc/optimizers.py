@@ -2,13 +2,17 @@
 
 Each entry pairs a string name with a per-optimizer config dataclass and an
 adapter that invokes the underlying driver. The entries here — ``stage``,
-``stage_batch``, ``local`` and the baselines ``amosa``, ``nsga2`` and
-``pcbb`` — call their drivers with the reference registry's argument set,
-so a run at a given :class:`~repro_torch.noc.api.Budget` consumes the same
-rng streams and evaluation accounting as the reference.
+``stage_batch``, ``local``, the baselines ``amosa``, ``nsga2`` and
+``pcbb``, and the distributed coordinator ``stage_dist`` — call their
+drivers with the reference registry's argument set, so a run at a given
+:class:`~repro_torch.noc.api.Budget` consumes the same rng streams and
+evaluation accounting as the reference.
 
 Adapters return ``(ParetoSet, extra)``; :func:`repro_torch.noc.api.run`
-wraps them with the budget guard and packages the :class:`RunResult`.
+wraps them with the budget guard and packages the :class:`RunResult`. An
+entry registered with ``owns_result=True`` (``stage_dist``) is called as
+``run_fn(problem, budget, cfg, device)`` instead and returns the complete
+:class:`RunResult`.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..core.pcbb import pcbb
 from ..core.problem import random_design
 from ..core.stage import moo_stage, stage_batch
 
-from .api import Budget, NocProblem
+from .api import Budget, NocProblem, RunResult
 
 
 # --------------------------------------------------------------------------
@@ -78,6 +82,83 @@ class StageBatchConfig:
     def __post_init__(self):
         check_forest_backend(self.forest_backend, allow_none=True)
         check_meta_backend(self.meta_backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageDistConfig:
+    """Distributed multi-start MOO-STAGE — see
+    :func:`repro_torch.dist.run_dist`.
+
+    ``n_workers`` shards the global budget (remainder-exact; per-worker
+    seeds spawned from the root seed); ``executor`` picks where shards
+    run (``"serial"`` in-process, ``"process"`` spawn-based
+    ``ProcessPoolExecutor``, ``"cuda"`` one shard per CUDA device in one
+    thread, ``"spmd"`` in-order shards whose evaluator splits every batch
+    across the visible CUDA devices — repro_torch.dist.worker);
+    ``sync_every`` > 0 pools surrogate training rows across workers every
+    that many STAGE iterations (0 = fully independent workers). The
+    remaining knobs configure each worker's ``stage_batch`` run
+    (``n_starts`` chains *per worker*, default 1 — W workers × 1 chain is
+    the like-for-like peer of ``stage_batch(n_starts=W)``).
+
+    Resilience knobs: ``shard_timeout_s`` is the per-shard wall-clock
+    deadline (preemptive under ``process``, cooperative in-process);
+    ``max_retries`` / ``retry_backoff_s`` bound the reseeded re-dispatches
+    of a failed shard; ``checkpoint_dir`` persists coordinator state after
+    every sync round (atomic writes) and ``resume=True`` restores the
+    latest round from it; ``faults`` is a deterministic fault script (see
+    :mod:`repro_torch.dist.faults`) for tests and chaos drills. All knobs
+    are validated here, at construction — not mid-run after budget has
+    been spent. The device is not a knob: it is :func:`repro_torch.noc.run`'s
+    argument."""
+
+    n_workers: int = 4
+    executor: str = "serial"
+    sync_every: int = 0
+    n_starts: int = 1
+    iters_max: int = 12
+    n_swaps: int = 24
+    n_link_moves: int = 24
+    max_local_steps: int = 10_000
+    forest_kwargs: dict | None = None
+    forest_backend: str | None = None
+    meta_backend: str = "fused"
+    shard_timeout_s: float | None = None
+    max_retries: int = 1
+    retry_backoff_s: float = 0.0
+    checkpoint_dir: str | None = None
+    resume: bool = False
+    faults: tuple = ()
+
+    def __post_init__(self):
+        from ..dist.faults import check_faults
+        from ..dist.worker import check_executor
+
+        if self.n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {self.n_workers}")
+        if self.sync_every < 0:
+            raise ValueError(
+                f"sync_every must be >= 0, got {self.sync_every}")
+        check_executor(self.executor)
+        check_forest_backend(self.forest_backend, allow_none=True)
+        check_meta_backend(self.meta_backend)
+        if self.shard_timeout_s is not None and self.shard_timeout_s <= 0:
+            raise ValueError(f"shard_timeout_s must be > 0 or None, "
+                             f"got {self.shard_timeout_s}")
+        if self.max_retries < 0:
+            raise ValueError(
+                f"max_retries must be >= 0, got {self.max_retries}")
+        if self.retry_backoff_s < 0:
+            raise ValueError(
+                f"retry_backoff_s must be >= 0, got {self.retry_backoff_s}")
+        if self.resume and not self.checkpoint_dir:
+            raise ValueError("resume=True requires checkpoint_dir")
+        if self.checkpoint_dir and self.sync_every < 1:
+            raise ValueError(
+                "checkpoint_dir requires sync_every >= 1 — round "
+                "checkpoints exist at sync-round boundaries only")
+        object.__setattr__(self, "faults", tuple(self.faults or ()))
+        check_faults(self.faults)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,19 +223,25 @@ class OptimizerEntry:
     #: the driver enforces Budget.max_evals itself (stops at the guard's
     #: exact threshold) — lets run() skip the fallback-Pareto upkeep.
     native_max_evals: bool = True
+    #: the adapter returns a complete RunResult instead of (ParetoSet,
+    #: extra) — for coordinators (e.g. "stage_dist") whose evaluations
+    #: happen on evaluators run() cannot see (other processes/devices), so
+    #: the driver must own accounting, history, and budget enforcement.
+    owns_result: bool = False
 
 
 OPTIMIZERS: dict[str, OptimizerEntry] = {}
 
 
-def register(name: str, config_cls: type, *, native_max_evals: bool = True):
+def register(name: str, config_cls: type, *, native_max_evals: bool = True,
+             owns_result: bool = False):
     """Decorator: add an adapter to the registry under ``name``."""
 
     def deco(fn):
         if name in OPTIMIZERS:
             raise ValueError(f"optimizer {name!r} already registered")
         OPTIMIZERS[name] = OptimizerEntry(name, config_cls, fn,
-                                          native_max_evals)
+                                          native_max_evals, owns_result)
         return fn
 
     return deco
@@ -293,3 +380,14 @@ def _run_pcbb(problem: NocProblem, budget: Budget, cfg: PcbbConfig,
         "best_scalarized_objs": np.asarray(res.best_objs,
                                            dtype=np.float64).tolist(),
     }
+
+
+@register("stage_dist", StageDistConfig, owns_result=True)
+def _run_stage_dist(problem: NocProblem, budget: Budget,
+                    cfg: StageDistConfig, device) -> RunResult:
+    # Lazy import: repro_torch.dist imports repro_torch.noc.api at module
+    # scope; a top-level import here would re-enter repro_torch.dist
+    # mid-initialization whenever repro_torch.dist is imported first.
+    from ..dist import run_dist
+
+    return run_dist(problem, budget, cfg, device)

@@ -95,10 +95,12 @@ def test_baseline_front_matches_reference(name, seed):
 
 def test_registry_lists_every_ported_optimizer():
     assert optimizer_names() == ("amosa", "local", "nsga2", "pcbb", "stage",
-                                 "stage_batch")
+                                 "stage_batch", "stage_dist")
     assert not get_optimizer("pcbb").native_max_evals
     assert all(get_optimizer(n).native_max_evals
                for n in optimizer_names() if n != "pcbb")
+    assert [n for n in optimizer_names()
+            if get_optimizer(n).owns_result] == ["stage_dist"]
     for name in ("amosa", "nsga2", "pcbb"):
         ours = get_optimizer(name).config_cls()
         theirs = ref_noc.get_optimizer(name).config_cls()

@@ -2,8 +2,10 @@
 same CUDA tensors, the evaluator on the card against the CPU, the two
 device twins (NSGA-II rank/crowding, batched PHV) on the card against the
 host, the multi-start search on the card against the CPU, the trace link
-report's K4 against its plain version, and the smoke-size hybrid served on
-the card against the CPU.
+report's K4 against its plain version, the smoke-size hybrid served on
+the card against the CPU, and the fleet (``stage_dist``): the ``cuda``
+executor against ``serial`` and an interrupted run resumed, both byte for
+byte.
 
 Marked ``cuda``: without a card every test skips (decided inside the
 fixture, never at import). On a machine with one:
@@ -422,3 +424,79 @@ def test_trace_link_report_walk_matches_plain_on_card(dev):
     np.testing.assert_allclose(card["util"], cpu["util"], rtol=1e-5, atol=0)
     np.testing.assert_allclose(card["visits"], cpu["visits"], rtol=1e-5,
                                atol=0)
+
+
+# --------------------------------------------------------------- the fleet
+def _dist_payload(res) -> str:
+    """Canonical payload (tests/test_dist.py's): wall clocks zeroed, the
+    driver-naming headers left out."""
+    import json
+
+    j = res.to_json()
+    j["history"] = [[0.0] + row[1:] for row in j["history"]]
+    keep = ("problem", "budget", "obj_idx", "designs", "objs", "history",
+            "n_evals", "n_calls", "exhausted")
+    return json.dumps({k: j[k] for k in keep}, sort_keys=True)
+
+
+_FLEET = dict(n_workers=4, iters_max=2, n_swaps=4, n_link_moves=4,
+              max_local_steps=4)
+
+
+def test_stage_dist_cuda_executor_matches_serial_on_card(dev):
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec("tiny"), traffic="BFS")
+    budget = Budget(max_evals=400, seed=0)
+    ops.reset_launches()
+    ser = run(problem, "stage_dist", budget, config=dict(_FLEET))
+    launched = ops.launches()
+    assert launched["minplus"] > 0 and launched["walk"] > 0
+    cud = run(problem, "stage_dist", budget,
+              config=dict(_FLEET, executor="cuda"))
+    assert _dist_payload(cud) == _dist_payload(ser)
+    assert cud.phv() == ser.phv()
+    with pytest.raises(ValueError, match="'cuda'"):
+        run(problem, "stage_dist", budget, config=dict(_FLEET,
+                                                        executor="jax"))
+
+
+def test_stage_dist_resume_on_card_is_byte_identical(dev, tmp_path):
+    from repro_torch.dist import CoordinatorKilled
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec("tiny"), traffic="BFS")
+    budget = Budget(max_evals=300, seed=1)
+    cfg = dict(_FLEET, n_workers=2, sync_every=1, iters_max=3)
+    ref = run(problem, "stage_dist", budget, config=cfg)
+    with pytest.raises(CoordinatorKilled):
+        run(problem, "stage_dist", budget, config=dict(cfg, faults=(
+            {"kind": "kill_coordinator", "round": 1},)),
+            checkpoint_dir=str(tmp_path))
+    res = run(problem, "stage_dist", budget, config=cfg,
+              checkpoint_dir=str(tmp_path), resume=True)
+    assert res.extra["resumed_from_round"] == 1
+    assert _dist_payload(res) == _dist_payload(ref)
+
+
+def test_evaluator_rows_do_not_depend_on_the_batch_on_card(dev):
+    """A design's objective rows on the card are the same in a batch of 48,
+    in its chunks, alone, and through the ``spmd`` split (four chunks on
+    this card, then one per visible card): the tail's sums keep one order
+    whatever the batch."""
+    spec = spec_64()
+    f = traffic_matrix(spec, "BFS")
+    designs = [spec.mesh_design()] + [
+        random_design(spec, np.random.default_rng(48)) for _ in range(47)]
+    ev = Evaluator(spec, f, device="cuda")
+    rows, aux = ev.batch_aux(designs)
+    for lo, hi in ((0, 12), (12, 24), (24, 25), (25, 48)):
+        part, part_aux = ev.batch_aux(designs[lo:hi])
+        assert np.array_equal(part, rows[lo:hi])
+        assert np.array_equal(part_aux["net_lat"], aux["net_lat"][lo:hi])
+    n = torch.cuda.device_count()
+    for split in (["cuda:0"] * 4, [f"cuda:{i}" for i in range(n)]):
+        got, got_aux = Evaluator(spec, f, device="cuda",
+                                 split_devices=split).batch_aux(designs)
+        assert np.array_equal(got, rows)
+        assert np.array_equal(got_aux["net_lat"], aux["net_lat"])

@@ -146,3 +146,76 @@ def test_rows_within_ulps_of_reference(spec_fn, traffic):
     ulps = np.abs(got.view(np.int32).astype(np.int64)
                   - want.view(np.int32).astype(np.int64))
     assert int(ulps.max()) <= 8
+
+
+# ------------------------------------------- the device tail's fixed order
+def _pairwise_f32(row):
+    """The pairwise halving sum of one row, in numpy f32 adds."""
+    vals = [np.float32(v) for v in row]
+    size = 1
+    while size < len(vals):
+        size *= 2
+    vals += [np.float32(0.0)] * (size - len(vals))
+    while len(vals) > 1:
+        half = len(vals) // 2
+        vals = [np.float32(a + b) for a, b in zip(vals[:half], vals[half:])]
+    return vals[0]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 64, 100, 4096])
+def test_fixed_sum_is_a_pairwise_sum_of_each_row(n):
+    from repro_torch.core.objectives import _fixed_sum
+
+    x = torch.as_tensor(np.random.default_rng(n).random((5, n),
+                                                         dtype=np.float32))
+    got = _fixed_sum(x, 1)
+    want = np.array([_pairwise_f32(r) for r in x.numpy()], dtype=np.float32)
+    assert np.array_equal(got.numpy(), want)
+    for lo, hi in ((0, 1), (1, 4), (4, 5)):
+        assert torch.equal(_fixed_sum(x[lo:hi], 1), got[lo:hi])
+    y = x.reshape(5, 1, n) if n != 4096 else x.reshape(5, 64, 64)
+    assert torch.equal(_fixed_sum(y, 2), got)
+
+
+def _tail_inputs(spec, designs):
+    """What ``evaluate_with_tables`` hands its tail, on the CPU."""
+    from repro_torch.core import routing
+    from repro_torch.core.objectives import design_cost, make_consts
+
+    c = make_consts(spec, "cpu")
+    f = torch.as_tensor(traffic_matrix(spec, "BFS"), dtype=torch.float32)
+    perm = torch.as_tensor(np.stack([d.perm for d in designs]),
+                           dtype=torch.int64)
+    adj = torch.as_tensor(np.stack([d.adj for d in designs]))
+    _, nh = routing.routing_tables_batched(design_cost(c, adj),
+                                           c.apsp_iters)
+    f_slots = f[perm[:, :, None], perm[:, None, :]] * (~c.eye).float()
+    hops, delay, util_d, visits, _ = _walk_host_order(
+        nh, c.link_delay, f_slots.contiguous(), c.max_hops)
+    slot_type = c.core_types[perm]
+    is_cpu, is_llc = slot_type == 0, slot_type == 1
+    pair = ((is_cpu[:, :, None] & is_llc[:, None, :])
+            | (is_llc[:, :, None] & is_cpu[:, None, :]))
+    return c, (adj | c.vadj, adj, f_slots, hops, delay, util_d, visits, pair,
+               c.core_power[perm])
+
+
+@pytest.mark.parametrize("spec_fn", [spec_tiny, spec_64])
+def test_device_tail_rows_do_not_depend_on_the_batch(spec_fn):
+    """The card's objective tail gives a design the same bits in any batch
+    (the ``spmd`` split's chunks, any chunking by ``max_batch``), within a
+    few ulps of the host order's rows."""
+    from repro_torch.core.objectives import _tail_device, _tail_host_order
+
+    spec = spec_fn()
+    c, args = _tail_inputs(spec, _designs(spec, 9, 5))
+    objs, net_lat = _tail_device(c, *args)
+    for lo, hi in ((0, 1), (1, 4), (4, 9), (8, 9)):
+        part = _tail_device(c, *(a[lo:hi] for a in args))
+        assert torch.equal(part[0], objs[lo:hi])
+        assert torch.equal(part[1], net_lat[lo:hi])
+    host_objs, host_net_lat = _tail_host_order(c, *args)
+    np.testing.assert_allclose(objs.numpy(), np.asarray(host_objs),
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(net_lat.numpy(), np.asarray(host_net_lat),
+                               rtol=1e-5, atol=0)

@@ -34,6 +34,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.phv_torch\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.serve\n"
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+        "import repro_torch.ckpt, repro_torch.dist, repro_torch.noc.server\n"
+        "import repro_torch.dist.worker, repro_torch.noc.server.client\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
