@@ -77,7 +77,22 @@ each raising on failure:
      spec_36 with a spawned server on the card killed and restarted,
      byte-identical to a fleet never killed; the ``spmd`` evaluator's
      split rows against the serial evaluator's, and ``stage_dist`` under
-     ``spmd`` against ``serial``.
+     ``spmd`` against ``serial``;
+ 13. training (``repro_torch.train``), after phase 9's serving model is
+     released: (a) the K5/K6 autograd Functions at phase 8's shapes, a
+     windowed GQA attention and a ragged SSD (S = 100): forward bit-equal
+     to the wrappers with one launch, none in backward, every input
+     gradient against autograd through the plain version on the card;
+     (b) zamba2-2.7b at full width (f32 master weights, bf16 compute,
+     remat), 4 steps of 8 x 512 synthetic tokens through the step function
+     ``Trainer.run`` calls, K5/K6 launches counted per step (forward +
+     remat recompute), step 0's loss against the plain versions on the
+     same weights, peak memory, warm step ms and tokens/s, and one step
+     under torch.profiler (K5, K6, the GEMMs, the plain backward and the
+     optimizer named); (c) zamba2 and yi-6b smoke in f32 from one initial
+     state: 20 ``Trainer.run`` steps card against CPU, a card run crashed
+     after step 12 and resumed from its step-8 checkpoint against the
+     uninterrupted one, and the train launcher on the card.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.
@@ -98,6 +113,7 @@ twice (wall seconds, front and PHV).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -118,8 +134,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
-#: The kernels of the NoC main path (phase 3) and of the serving path
-#: (phase 9).
+#: The kernels of the NoC main path (phase 3) and of the serving and
+#: training paths (phases 9 and 13).
 NOC_KERNELS = ("minplus", "forest_predict", "score_block_max", "walk")
 #: The CUDA functions behind each NoC wrapper, as the profiler names them.
 NOC_SYMBOLS = {
@@ -188,12 +204,33 @@ def time_ms_per_call(fn, warmup: int = 5, reps: int = 50) -> float:
     return time_ms(fn, warmup, reps, inner=1)
 
 
+_PROFILER_WARM = []
+
+
+def warm_profiler(torch) -> None:
+    """Open and close one throwaway torch.profiler session, once per process.
+    The first session of a process sets up CUPTI's activity tracing while it
+    runs and can miss a kernel record (phase 6 once saw 9 of K3's 10
+    launches): the sessions that measure come after this one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if _PROFILER_WARM:
+        return
+    x = torch.zeros(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(10):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    _PROFILER_WARM.append(True)
+
+
 def profiled(torch, fn, calls: int = 10, warmup: int = 3):
     """The CUDA kernels that ``calls`` back-to-back calls of ``fn`` run, as
     torch.profiler reads them: [(name, device ms in total, launches)]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    warm_profiler(torch)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -226,23 +263,33 @@ def trace_main_path(torch, fn, untraced_wall: float,
                     untraced_name: str = "phase 3's run (which includes "
                                          "first-use set-up)",
                     label: str = "trace",
-                    symbols: dict | None = None) -> dict:
+                    symbols: dict | None = None,
+                    ranges: dict | None = None) -> dict:
     """Device time of one more run of ``fn`` under torch.profiler: the sum
     of kernel times, the device's idle share of the traced run's and of an
     untraced run's wall time, and the kernels that take most of it. Returns
     {name: (device ms, launches)} for each entry of ``symbols`` (a wrapper
-    name and the CUDA functions behind it)."""
+    name and the CUDA functions behind it) and of ``ranges`` (a name and
+    the host-side ranges whose kernels it sums: an autograd node, a
+    ``record_function`` span; launches are the range's calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    warm_profiler(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+    # A record_function range also shows on the device's timeline, under
+    # its host name: it is not a kernel.
+    host_keys = {e.key for e in host}
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in host_keys]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if not kern:
         print(f"{label}: the profiler saw no device time (not measured)")
@@ -262,6 +309,19 @@ def trace_main_path(torch, fn, untraced_wall: float,
                         sum(e.count for e in rows))
         print(f"  {name}: {totals[name][0]:.3f} ms of device time over "
               f"{totals[name][1]} kernel launches ({', '.join(syms)})")
+    for name, keys in (ranges or {}).items():
+        ms = calls = 0
+        for key in keys:
+            # A node's range and the engine's range around it both hold its
+            # kernels: take the outer (larger) one.
+            rows = [e for e in host if key in e.key]
+            if rows:
+                top = max(rows, key=lambda e: e.device_time_total)
+                ms += top.device_time_total / 1e3
+                calls += top.count
+        totals[name] = (ms, calls)
+        print(f"  {name}: {ms:.3f} ms of device time under {calls} host "
+              f"ranges ({', '.join(keys)})")
     return totals
 
 
@@ -1591,6 +1651,287 @@ def fleet_spmd(torch, ops, device="cuda", spec="64", bsz=48,
               "serial's")
 
 
+# ----------------------------------------------------- training (13)
+#: Phase 13 (a): K5/K6 with a gradient at phase 8's shapes and at a
+#: windowed GQA case and a ragged SSD one.
+TRAIN_ATTN_CASES = (ATTN_CASES[0], (2, 8, 2, 512, 128, True, 256, "bfloat16"))
+TRAIN_SSD_CASES = (SSD_CASES[0], (2, 100, 8, 64, 64, 64))
+#: Each input gradient of a Function against autograd through the plain
+#: version on the card: largest |difference| as a share of the largest
+#: |plain gradient|. The backward recomputes that same plain version, so
+#: the two should be bit-equal.
+TRAIN_GRAD_REL_TOL = 1e-6
+#: Phase 13 (b): zamba2-2.7b at full width, steps of 8 x 512 tokens.
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+#: Step 0's loss through the kernels against the same loss through the
+#: plain versions on the card, relative. Both run the bf16 model; they
+#: differ by bf16 roundings of attention and SSD outputs carried through
+#: 54 layers, averaged over 4096 tokens.
+TRAIN_LOSS_REL_TOL = 5e-3
+#: Phase 13 (c): smoke-size losses, card against CPU and resumed against
+#: uninterrupted, relative (the reference trainer's own bar).
+TRAIN_SMOKE_RTOL = 1e-4
+
+
+def _grad_case(torch, ops, fn, plain, inputs, g):
+    """(forward, grads, kernel launches in forward / in backward) of ``fn``
+    through its Function, and the forward and grads of ``plain``."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    before = ops.launches()
+    out = fn(*ins)
+    mid = ops.launches()
+    grads = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    after = ops.launches()
+    fwd = {k: mid[k] - before[k] for k in LLM_KERNELS}
+    bwd = {k: after[k] - mid[k] for k in LLM_KERNELS}
+    pins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    pout = plain(*pins)
+    pgrads = torch.autograd.grad(pout, pins, g)
+    with torch.no_grad():
+        wrapper = fn(*inputs)
+    return out, grads, fwd, bwd, wrapper, pgrads
+
+
+def train_fns_on_card(torch, ops, ref, dev) -> None:
+    """Phase 13 (a): the K5/K6 autograd Functions on the card. The forward
+    is the wrapper's kernel output bit for bit, one launch; the backward
+    launches no kernel and gives the plain version's gradients."""
+    cases = []
+    for case in TRAIN_ATTN_CASES:
+        b, h, kh, s, d, causal, window, _ = case
+        q, k, v = attn_inputs(torch, case, dev)
+        g = torch.randn(q.shape, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev).to(q.dtype)
+        cases.append(("flash_attention", case,
+                      lambda *a, c=causal, w=window: ops.attention(
+                          *a, causal=c, window=w),
+                      lambda *a, c=causal, w=window: ref.attention_ref(
+                          *a, causal=c, window=w), (q, k, v), g))
+    for case in TRAIN_SSD_CASES:
+        chunk = case[-1]
+        args = ssd_inputs(torch, case, dev)
+        g = torch.randn(args[0].shape, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        cases.append(("ssd", case,
+                      lambda *a, c=chunk: ops.ssd(*a, chunk=c),
+                      lambda *a, c=chunk: ref.ssd_padded_ref(*a, chunk=c),
+                      args, g))
+    for name, case, fn, plain, inputs, g in cases:
+        out, grads, fwd, bwd, wrapper, pgrads = _grad_case(
+            torch, ops, fn, plain, inputs, g)
+        check(torch.equal(out, wrapper),
+              f"{name} {case}: the Function's forward is not the wrapper's")
+        check(fwd[name] == 1 and sum(fwd.values()) == 1,
+              f"{name} {case}: forward launched {fwd}, expected one {name}")
+        check(sum(bwd.values()) == 0,
+              f"{name} {case}: backward launched kernels {bwd}")
+        worst, equal = 0.0, True
+        for i, (a, p) in enumerate(zip(grads, pgrads)):
+            check(a.dtype == p.dtype and a.shape == p.shape,
+                  f"{name} {case}: grad {i} is {a.dtype} {tuple(a.shape)}")
+            diff = float((a.float() - p.float()).abs().max())
+            scale = float(p.float().abs().max())
+            check(diff <= TRAIN_GRAD_REL_TOL * scale,
+                  f"{name} {case}: grad {i} max |diff| {diff} > "
+                  f"{TRAIN_GRAD_REL_TOL} x {scale}")
+            worst = max(worst, diff / scale if scale else diff)
+            equal = equal and torch.equal(a, p)
+        print(f"{name} Function {case}: forward bit-equal to the wrapper, "
+              f"launches forward {fwd[name]} / backward {sum(bwd.values())};"
+              f" {len(grads)} input grads against the plain version: max "
+              f"|diff| {worst:.3g} of their scale (tolerance "
+              f"{TRAIN_GRAD_REL_TOL}), bit-equal: {equal}")
+
+
+def train_full_width(torch, ops, ref, dev, card: str) -> None:
+    """Phase 13 (b): zamba2-2.7b at full width (f32 master weights, bf16
+    compute, remat) trained for TRAIN_STEPS steps of 8 x 512 tokens through
+    the step function ``Trainer.run`` calls; K5/K6 launches counted per
+    step; step 0's loss against the plain versions; memory, step time and
+    one traced step."""
+    from repro_torch.ckpt.checkpoint import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.models import build_train
+    from repro_torch.train import OptConfig, make_train_fns
+    from repro_torch.train.train_step import batch_to
+
+    cfg = get_config("zamba2-2.7b")
+    check(cfg.remat and cfg.compute_dtype == torch.bfloat16,
+          "zamba2-2.7b: expected remat and bf16 compute")
+    steps = TRAIN_STEPS
+    model = build_train(cfg, device=dev)
+    opt = OptConfig(lr=3e-3, warmup_steps=max(steps // 10, 5),
+                    total_steps=steps)
+    init_state, step = make_train_fns(model, Policy(), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    print(f"zamba2-2.7b training: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters (analytic "
+          f"{cfg.param_count()}), f32 params + grads + Adam m, v = "
+          f"{16 * n_params / 1e9:.2f} GB; state drawn in "
+          f"{time.perf_counter() - t0:.1f} s; remat on; steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+
+    # Step 0's loss through the plain versions on the card, on the same
+    # initial parameters (the model's modules call ops.attention / ops.ssd,
+    # pointed here at the plain versions for this one forward).
+    b0 = batch_to(data.batch(0), dev)
+    kernels = (ops.attention, ops.ssd)
+    try:
+        ops.attention, ops.ssd = ref.attention_ref, ref.ssd_padded_ref
+        with torch.no_grad():
+            plain_loss = model.loss(state["params"], b0).item()
+    finally:
+        ops.attention, ops.ssd = kernels
+    del b0
+
+    n_sites = cfg.n_layers // cfg.attn_every
+    want = {"flash_attention": 2 * n_sites, "ssd": 2 * cfg.n_layers}
+    losses, norms, walls = [], [], []
+    for i in range(steps):
+        batch = data.batch(i)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = m["loss"].item()
+        walls.append(time.perf_counter() - t0)
+        launched = {k: ops.launches()[k] for k in LLM_KERNELS}
+        losses.append(loss)
+        norms.append(m["grad_norm"].item())
+        check(launched == want, f"step {i}: launches {launched}, expected "
+              f"{want} (forward + remat recompute, none in backward)")
+        print(f"step {i}: loss {loss:.6f} grad_norm {norms[-1]:.6f} lr "
+              f"{m['lr'].item():.6g} wall {walls[-1] * 1e3:.1f} ms "
+              f"launches {json.dumps(launched)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"non-finite losses {losses} or grad norms {norms}")
+    check(abs(losses[0] - math.log(cfg.vocab)) < 2.5,
+          f"step 0 loss {losses[0]} not within 2.5 of ln V "
+          f"{math.log(cfg.vocab):.4f}")
+    gap = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(gap <= TRAIN_LOSS_REL_TOL, f"step 0 loss {losses[0]} against the "
+          f"plain versions' {plain_loss}: {gap} > {TRAIN_LOSS_REL_TOL}")
+    check(peak_gb < total_gb, f"peak {peak_gb} GB over the card's {total_gb}")
+    warm = statistics.mean(walls[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"{card}: step 0 loss {losses[0]:.6f} against the plain versions' "
+          f"{plain_loss:.6f}: relative gap {gap:.3g} (tolerance "
+          f"{TRAIN_LOSS_REL_TOL}); ln V {math.log(cfg.vocab):.4f}")
+    print(f"{card}: peak memory {peak_gb:.2f} GB of {total_gb:.2f} GB; first "
+          f"step {walls[0] * 1e3:.1f} ms; warm step (steps 1-{steps - 1}) "
+          f"{warm * 1e3:.1f} ms, {tokens / warm:.0f} tokens/s; per step "
+          f"K5 {want['flash_attention']} and K6 {want['ssd']} launches")
+
+    def one_step():
+        step(state, data.batch(steps))[1]["loss"].item()
+
+    trace_main_path(
+        torch, one_step, warm, "a warm step (mean of steps 1-3)",
+        "trace of one training step",
+        symbols={"K5 flash_attention": ("flash_tc_kernel", "flash_kernel"),
+                 "K6 ssd": ("ssd_kernel",),
+                 "GEMMs": ("gemm", "nvjet", "xmma", "cutlass")},
+        ranges={"K5 plain backward": ("_AttentionFnBackward",),
+                "K6 plain backward": ("_SsdFnBackward",),
+                "optimizer": ("train.optimizer",)})
+    del state, step, model
+
+
+def train_smoke_card_vs_cpu(torch, ops, dev) -> None:
+    """Phase 13 (c): zamba2 and yi-6b smoke in f32 from one initial state:
+    20 ``Trainer.run`` steps on the card and on the CPU; a card run crashed
+    after step 12 and resumed from its step-8 checkpoint against the
+    uninterrupted card run; the launcher in this process."""
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import build_train
+    from repro_torch.train import (OptConfig, TrainConfig, Trainer,
+                                   make_train_fns)
+
+    steps = 20
+    opt = OptConfig(lr=1e-2, warmup_steps=5, total_steps=steps,
+                    weight_decay=0.0)
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        for arch in ("zamba2-2.7b", "yi-6b"):
+            cfg = get_config(arch, smoke=True).scaled(
+                compute_dtype=torch.float32)
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                          global_batch=8, seed=0))
+            # One initial state, drawn on the CPU, as every run's step-0
+            # checkpoint: each Trainer restores it onto its own device.
+            state0 = make_train_fns(build_train(cfg, device="cpu"), Policy(),
+                                    opt)[0](0)
+            for name in ("card", "cpu", "crash"):
+                mgr = CheckpointManager(str(root / arch / name))
+                mgr.save(0, state0, blocking=True)
+                mgr.close()
+
+            def trainer(name, device):
+                return Trainer(build_train(cfg, device=device), Policy(), opt,
+                               data, TrainConfig(
+                                   steps=steps, ckpt_every=8,
+                                   ckpt_dir=str(root / arch / name)))
+
+            ops.reset_launches()
+            card = dict(trainer("card", dev).run()["losses"])
+            launched = {k: ops.launches()[k] for k in LLM_KERNELS}
+            cpu = dict(trainer("cpu", "cpu").run()["losses"])
+            worst = max(abs(card[i] - cpu[i]) / abs(cpu[i])
+                        for i in range(steps))
+            check(sorted(card) == sorted(cpu) == list(range(steps)),
+                  f"{arch}: steps ran {sorted(card)} / {sorted(cpu)}")
+            check(worst <= TRAIN_SMOKE_RTOL, f"{arch}: card against CPU "
+                  f"losses {worst} > {TRAIN_SMOKE_RTOL}")
+            check(launched["flash_attention"] > 0 and (
+                cfg.family != "hybrid" or launched["ssd"] > 0),
+                f"{arch}: kernels not launched on the card: {launched}")
+            out = trainer("crash", dev).run(crash_at=12)
+            check(out["crashed_at"] == 12, f"{arch}: crash {out}")
+            again = trainer("crash", dev)
+            check(again.ckpt.latest_step() == 8,
+                  f"{arch}: latest checkpoint {again.ckpt.latest_step()}")
+            resumed = dict(again.run()["losses"])
+            check(min(resumed) == 8, f"{arch}: resumed at {min(resumed)}")
+            gap = max(abs(resumed[i] - card[i]) / abs(card[i])
+                      for i in range(10, steps))
+            check(gap <= TRAIN_SMOKE_RTOL, f"{arch}: resumed losses {gap} > "
+                  f"{TRAIN_SMOKE_RTOL} from the uninterrupted card run")
+            bit = all(resumed[i] == card[i] for i in range(8, steps))
+            print(f"{arch} smoke f32: {steps} Trainer steps, card against "
+                  f"CPU max relative loss gap {worst:.3g} (tolerance "
+                  f"{TRAIN_SMOKE_RTOL}), losses {card[0]:.4f} -> "
+                  f"{card[steps - 1]:.4f}, card launches "
+                  f"{json.dumps(launched)}; crashed after step 12, resumed "
+                  f"from step 8: steps 10-19 within {gap:.3g}, steps 8-19 "
+                  f"bit-equal to the uninterrupted run: {bit}")
+        ops.reset_launches()
+        check(train_main(["--arch", "zamba2-2.7b", "--smoke", "--steps",
+                          str(steps), "--ckpt-dir",
+                          str(root / "launch")]) == 0, "launcher failed")
+        launched = {k: ops.launches()[k] for k in LLM_KERNELS}
+        check(all(launched.values()), f"launcher: launches {launched}")
+        print(f"launcher --arch zamba2-2.7b --smoke --steps {steps} on the "
+              f"card: launches {json.dumps(launched)}")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -1936,6 +2277,18 @@ def main(argv: list[str]) -> int:
     fleet_resume(torch, ops)
     fleet_service(torch, ops)
     fleet_spmd(torch, ops, ser=fleet_ser)
+
+    # ------------------------------------------------------------ phase 13
+    phase("13 training: K5/K6 Functions, zamba2-2.7b at full width, smoke")
+    print(f"card: {card}")
+    del served, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_fns_on_card(torch, ops, ref, dev)
+    train_full_width(torch, ops, ref, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_smoke_card_vs_cpu(torch, ops, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

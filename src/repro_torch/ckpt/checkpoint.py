@@ -31,19 +31,19 @@ import torch
 _STEP_RE = re.compile(r"^step_(\d+)\.npz$")
 
 
-def _flatten(tree) -> list:
+def tree_leaves(tree) -> list:
     """The leaves of a nested dict / list / tuple, in the reference's order:
     dict keys sorted, sequences in order, ``None`` an empty subtree."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return [leaf for sub in tree for leaf in _flatten(sub)]
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
 
 
-def _unflatten(tree_like, leaves):
+def tree_unflatten(tree_like, leaves):
     """``tree_like``'s structure with its leaves replaced, in order."""
     it = iter(leaves)
 
@@ -120,7 +120,7 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree, blocking: bool = False):
-        host_leaves = [_to_host(x) for x in _flatten(tree)]  # device -> host
+        host_leaves = [_to_host(x) for x in tree_leaves(tree)]  # device -> host
         self.wait()
         fut = self._pool.submit(self._write, step, host_leaves)
         self._pending = fut
@@ -179,7 +179,7 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:08d}.npz")
-        like = _flatten(tree_like)
+        like = tree_leaves(tree_like)
         with np.load(path) as data:
             loaded = [torch.from_numpy(data[f"leaf_{i}"].copy())
                       for i in range(len(like))]
@@ -192,4 +192,4 @@ class CheckpointManager:
 
             dev = resolve_device(device)
             loaded = [t.to(dev) for t in loaded]
-        return _unflatten(tree_like, loaded), step
+        return tree_unflatten(tree_like, loaded), step

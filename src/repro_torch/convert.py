@@ -12,7 +12,10 @@ nothing of it:
     other's with their own ``from_json``;
   * a reference model's parameter pytree, as nested dicts of numpy arrays
     with stacked ``(L, ...)`` layer leaves, becomes the port's parameter
-    tree for :func:`repro_torch.models.build` (:func:`params_from_jax`).
+    tree for :func:`repro_torch.models.build` (:func:`params_from_jax`);
+  * a reference trainer state (params, Adam moments, step and the error
+    feedback, as numpy) becomes the port's train state
+    (:func:`train_state_from_jax`), so both compute the same step.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 
 import torch
 
+from .ckpt.checkpoint import tree_leaves
 from .core.forest import RegressionForest
 from .models.common import ModelConfig
 
@@ -74,3 +78,21 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
         return torch.from_numpy(np.array(arr, copy=True))
 
     return {k: conv(v, k) for k, v in tree.items()}
+
+
+def train_state_from_jax(cfg: ModelConfig, state: dict) -> dict:
+    """The port's train state ({"params", "opt": {"m", "v", "step"},
+    "err"?}) from a reference trainer state of numpy leaves. CPU tensors;
+    the parameters require grad."""
+    params = params_from_jax(cfg, state["params"])
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt = state["opt"]
+    out = {"params": params,
+           "opt": {"m": params_from_jax(cfg, opt["m"]),
+                   "v": params_from_jax(cfg, opt["v"]),
+                   "step": torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32)}}
+    if "err" in state:
+        out["err"] = params_from_jax(cfg, state["err"])
+    return out

@@ -5,7 +5,13 @@ For tensors on the CPU each wrapper runs its plain version
 hand-written kernel (``csrc/*.cu``, built at first use by
 :mod:`repro_torch.kernels.build`) or raises; there is no fallback. Every
 wrapper counts its kernel launches in ``KERNELS[name].launches``, adding
-one where it launches and nowhere else."""
+one where it launches and nowhere else.
+
+Training reaches K5 and K6 through ``torch.autograd.Function``s, the
+counterparts of the reference's custom_vjps (``src/repro/kernels/ops.py``
+:55-107): the forward launches the kernel, and the backward recomputes the
+plain version from the saved inputs and differentiates it. The reference
+has no backward kernel, so none is ported."""
 
 from __future__ import annotations
 
@@ -386,6 +392,44 @@ ATTN_MAX_HEAD_DIM = 256
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _grads_of_plain(ctx, plain, g: torch.Tensor) -> tuple:
+    """The gradients of ``plain`` at the inputs saved in ``ctx``, against
+    the output gradient ``g``: the plain version recomputed with autograd
+    on, for the inputs that need a gradient (None for the others)."""
+    saved = ctx.saved_tensors        # unpacked once (remat recomputes it)
+    need = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = plain(*ins)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, n in zip(ins, need) if n], g))
+    return tuple(next(grads) if n else None for n in need)
+
+
+class _AttentionFn(torch.autograd.Function):
+    """K5 with a gradient: the forward is :func:`_attention` (the kernel on
+    the card), the backward recomputes ``ref.attention_ref`` from the saved
+    q, k, v (no logits are saved)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return _attention(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window = ctx.mask
+        return (*_grads_of_plain(
+            ctx, lambda q, k, v: ref.attention_ref(q, k, v, causal=causal,
+                                                   window=window), g),
+            None, None)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None) -> torch.Tensor:
     """GQA attention forward (K5): q (B, H, Sq, D), k/v (B, KH, Sk, D), bf16
@@ -394,7 +438,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card the dtype picks the kernel: bf16 runs on the tensor cores
     (bf16 operands, f32 accumulators, probabilities as two bf16 terms
-    hi + lo in p.v), f32 on the CUDA cores in f32."""
+    hi + lo in p.v), f32 on the CUDA cores in f32. Where autograd needs a
+    gradient, the call goes through :class:`_AttentionFn`."""
+    if _needs_grad(q, k, v):
+        return _AttentionFn.apply(q, k, v, causal, window)
+    return _attention(q, k, v, causal, window)
+
+
+def _attention(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
     if not _on_cuda(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     b, h, sq, d = q.shape
@@ -434,6 +485,40 @@ SSD_MAX_P = 64
 SSD_MAX_N = 128
 
 
+def ssd_plain(x, dt, a, b, c, d, *, chunk: int = 64,
+              return_state: bool = False):
+    """The plain version of what :func:`ssd` computes on x's device. On the
+    CPU, the reference's choice: the chunked form when S is a multiple of
+    ``chunk`` above it, else the sequential scan. On the card, the kernel's:
+    S padded with zero rows to a multiple of ``chunk`` (none when it is
+    one), which leave the state unchanged, then the chunked form."""
+    if x.device.type != "cpu":
+        return ref.ssd_padded_ref(x, dt, a, b, c, d, chunk=chunk,
+                                  return_state=return_state)
+    s = x.shape[1]
+    if s % chunk == 0 and s > chunk:
+        return ref.ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk,
+                                   return_state=return_state)
+    return ref.ssd_ref(x, dt, a, b, c, d, return_state=return_state)
+
+
+class _SsdFn(torch.autograd.Function):
+    """K6 with a gradient: the forward is :func:`_ssd` (the kernel on the
+    card), the backward recomputes :func:`ssd_plain` from the saved inputs
+    and differentiates it, to x, dt, a, b, c and d."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, chunk):
+        ctx.save_for_backward(x, dt, a, b, c, d)
+        ctx.chunk = chunk
+        return _ssd(x, dt, a, b, c, d, chunk, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_grads_of_plain(
+            ctx, lambda *args: ssd_plain(*args, chunk=ctx.chunk), g), None)
+
+
 def ssd(x, dt, a, b, c, d, *, chunk: int = 64, return_state: bool = False):
     """Mamba-2 SSD chunked scan (K6): x (B,S,H,P), dt (B,S,H), a (H,), b/c
     (B,S,N), d (H,), all f32. Returns y (B,S,H,P), plus the final state
@@ -441,18 +526,22 @@ def ssd(x, dt, a, b, c, d, *, chunk: int = 64, return_state: bool = False):
 
     On the card one block runs 3 heads of a batch row (2 at N > 64),
     sharing each chunk's C B^T, with every f32 product as three TF32
-    products on the tensor cores.
+    products on the tensor cores. The kernel takes any S: a ragged tail
+    runs as a chunk padded with zero rows. On the CPU this runs
+    :func:`ssd_plain`. Where autograd needs a gradient, the call goes
+    through :class:`_SsdFn`; ``return_state`` is forward-only, as in the
+    reference (the serving path)."""
+    if _needs_grad(x, dt, a, b, c, d):
+        if return_state:
+            raise ValueError("ssd: return_state is forward-only")
+        return _SsdFn.apply(x, dt, a, b, c, d, chunk)
+    return _ssd(x, dt, a, b, c, d, chunk, return_state)
 
-    On the CPU this keeps the reference's choice: the chunked form when S is
-    a multiple of ``chunk`` above it, else the sequential scan. The kernel
-    takes any S: a ragged tail runs as a chunk padded with zero rows, which
-    leave the state unchanged (plain version: ``ref.ssd_padded_ref``)."""
+
+def _ssd(x, dt, a, b, c, d, chunk: int, return_state: bool):
     if not _on_cuda(x, dt, a, b, c, d):
-        s = x.shape[1]
-        if s % chunk == 0 and s > chunk:
-            return ref.ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk,
-                                       return_state=return_state)
-        return ref.ssd_ref(x, dt, a, b, c, d, return_state=return_state)
+        return ssd_plain(x, dt, a, b, c, d, chunk=chunk,
+                         return_state=return_state)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     if not 1 <= chunk <= SSD_MAX_CHUNK:

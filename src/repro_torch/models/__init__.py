@@ -2,6 +2,6 @@
 families in PyTorch, with the reference's parameter layout."""
 
 from .common import ModelConfig
-from .model import Model, build
+from .model import Model, TrainModel, build, build_train
 
-__all__ = ["Model", "ModelConfig", "build"]
+__all__ = ["Model", "ModelConfig", "TrainModel", "build", "build_train"]

@@ -1,11 +1,13 @@
-"""Shared model substrate: the config, initialization, norms and RoPE.
+"""Shared model substrate: the config, initialization, norms, RoPE and the
+loss.
 
 The reference's models are functional JAX over parameter pytrees; the
 port keeps the same nested-dict layout (stacked ``(L, ...)`` layer leaves)
 so one tree converts into the other leaf for leaf. One card holds the whole
-model, so there is no sharding hook; layers run in a Python loop under
-``torch.inference_mode``, so the reference's ``remat`` and
-``unroll_layers`` have no counterpart."""
+model, so there is no sharding hook. Layers run in a Python loop, so the
+reference's ``unroll_layers`` has no counterpart; ``remat`` means what it
+means there: the training loss recomputes each layer's activations in the
+backward pass (serving ignores it)."""
 
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.float32     # parameter dtype
     compute_dtype: Any = torch.bfloat16
+    remat: bool = True             # per-layer activation recompute (training)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -140,9 +143,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+class MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device. The init functions put
+    their tensors on ``gen.device``, so with this one they build a parameter
+    tree's structure, shapes and dtypes and allocate nothing."""
+
+    device = torch.device("meta")
+
+
 def init_dense(gen: torch.Generator, shape, scale_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights drawn from ``gen`` on its device."""
     fan_in = shape[scale_axis]
     w = torch.randn(shape, generator=gen, device=gen.device)
     return (w * (fan_in ** -0.5)).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32: logits (..., V), integer labels
+    (...); with ``mask``, the masked mean, its denominator at least 1."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

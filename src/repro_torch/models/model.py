@@ -1,15 +1,18 @@
 """Unified model interface: ``build(cfg) -> Model``, an ``nn.Module`` that
 holds the parameters on one explicit device and serves ``prefill`` /
-``decode_step`` / ``init_cache``."""
+``decode_step`` / ``init_cache``; ``build_train(cfg) -> TrainModel``, the
+reference's ``init`` / ``loss`` pair that the train step builds on."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from . import transformer
-from .common import ModelConfig
+from .common import MetaGenerator, ModelConfig
 
 #: Leaves the reference casts to the compute dtype at every use (matmul
 #: weights, the conv, the embedding). The model casts them once: the same
@@ -86,3 +89,40 @@ def build(cfg: ModelConfig, params: dict | None = None, *, seed: int = 0,
         with torch.inference_mode():
             params = transformer.init_params(cfg, gen)
     return Model(cfg, params, dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainModel:
+    """The training side of a model, the reference's ``Model.init`` /
+    ``Model.loss`` over parameter trees whose leaves are tensors on
+    ``device`` that require grad. It holds no weights and no cast copies:
+    the serving model's ``run_params`` would go stale after an optimizer
+    step."""
+
+    cfg: ModelConfig
+    device: torch.device
+
+    def init(self, seed: int, device=None) -> dict:
+        """Fresh parameters drawn from a ``torch.Generator`` seeded with
+        ``seed`` on ``device`` (the model's by default; ``"meta"`` builds
+        the tree's shapes and dtypes only). Drawn under ``no_grad``, not
+        ``inference_mode``: autograd must be able to save them."""
+        dev = self.device if device is None else torch.device(device)
+        gen = (MetaGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
+        with torch.no_grad():
+            params = transformer.init_params(self.cfg, gen)
+        for _, _, v in _leaves(params):
+            v.requires_grad_(True)
+        return params
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """The scalar training loss of ``batch`` (tensors on the device)."""
+        return transformer.loss_fn(self.cfg, params, batch)
+
+
+def build_train(cfg: ModelConfig, device=None) -> TrainModel:
+    """The training model of ``cfg`` on ``device`` (a CUDA device unless
+    the caller asks for the CPU)."""
+    transformer.check_family(cfg)
+    return TrainModel(cfg, resolve_device(device))

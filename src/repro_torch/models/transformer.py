@@ -1,23 +1,29 @@
 """Decoder-only LM assembly for the dense / VLM / SSM / hybrid families.
 
 Parameters keep the reference's layout: stacked ``(L, ...)`` layer leaves,
-indexed per layer by a plain Python loop (a view, no copy). Each layer's
-attention window is a Python int, so every full-sequence attention layer
-goes through the attention kernel. The zamba2-style hybrid runs
-``attn_every`` mamba layers, then the one shared attention+MLP block, per
-site, with a KV cache per site.
+split into per-layer views once per forward (``torch.unbind``, so training
+gives each stacked leaf one gradient stack) and run by a plain Python
+loop. Each layer's attention window is a Python int, so every
+full-sequence attention layer goes through the attention kernel. The
+zamba2-style hybrid runs ``attn_every`` mamba layers, then the one shared
+attention+MLP block, per site, with a KV cache per site.
+
+``loss_fn`` is the training loss. With ``cfg.remat`` it recomputes every
+layer (each mamba layer, each shared-block site) in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 
 MoE (``moe.py``) and the encoder-decoder family are not ported yet: they
-run no TPU kernel and are not on the serving path of this port (ROADMAP.md
-Queue 1, item 13)."""
+run no TPU kernel and are on neither the serving nor the training path of
+this port (ROADMAP.md Queue 1, item 13)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_decode, attn_full, init_attn_layer
-from .common import ModelConfig, init_dense, rms_norm
+from .common import ModelConfig, cross_entropy, init_dense, rms_norm
 from .mamba2 import init_mamba_layer, mamba_decode, mamba_full
 
 FAMILIES = ("dense", "vlm", "ssm", "hybrid")
@@ -88,10 +94,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 # ---------------------------------------------------------------- helpers
-def layer(params: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: a view into each stacked leaf."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in params.items()}
+def split_layers(params: dict, n: int) -> list[dict]:
+    """The ``n`` layers' parameters, views made by one ``torch.unbind`` per
+    stacked leaf. Indexing each leaf per layer gives the same views, but in
+    training each index's backward fills a zero gradient of the whole
+    stacked leaf and adds it: ``n`` of them per leaf. Unbinding stacks the
+    ``n`` layer gradients once."""
+    out = [{} for _ in range(n)]
+    for k, v in params.items():
+        parts = split_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+        for d, part in zip(out, parts):
+            d[k] = part
+    return out
 
 
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -119,6 +133,22 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor):
     return x @ head.to(cfg.compute_dtype)
 
 
+def _dense_block(cfg, p, x, window):
+    h, kv = attn_full(cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
+                      window=window)
+    x = x + h
+    x = x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x, kv
+
+
+def _mamba_block(cfg, p, x, return_state=False):
+    h = mamba_full(cfg, p["mamba"], rms_norm(x, p["norm1"], cfg.norm_eps),
+                   return_state=return_state)
+    if return_state:
+        return x + h[0], h[1]
+    return x + h, None
+
+
 def _shared_block(cfg, shared, x):
     h, kv = attn_full(cfg, shared["attn"],
                       rms_norm(x, shared["norm1"], cfg.norm_eps), window=0)
@@ -127,27 +157,38 @@ def _shared_block(cfg, shared, x):
     return x, kv
 
 
+def _remat(block, cfg, *args):
+    """``block(cfg, *args)[0]`` with its activations recomputed in the
+    backward pass instead of kept (the forward draws no random numbers, so
+    no RNG state is stashed)."""
+    return checkpoint(lambda *a: block(cfg, *a)[0], *args,
+                      use_reentrant=False, preserve_rng_state=False)
+
+
 # ------------------------------------------------------------ full forward
 def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-                 collect_cache: bool = False):
+                 collect_cache: bool = False, remat: bool = False):
     """Full-sequence forward: (hidden (B, S, D), caches or None).
 
     caches: dense/vlm ``(k, v)`` stacked (L, B, S, KH, Dh); ssm
     ``{"conv", "ssm"}`` stacked (L, ...); hybrid ``(k, v, states)`` with k/v
-    stacked per site (n_sites, ...) and the mamba states per layer."""
+    stacked per site (n_sites, ...) and the mamba states per layer. With
+    ``remat`` (and autograd recording) each layer is recomputed in the
+    backward pass; it cannot collect caches."""
     check_family(cfg)
+    remat = remat and torch.is_grad_enabled()
+    if remat and collect_cache:
+        raise ValueError("remat recomputes layers and collects no cache")
     x = _embed(cfg, params, tokens)
-    layers = params["layers"]
+    layers = split_layers(params["layers"], cfg.n_layers)
 
     if cfg.family in ("dense", "vlm"):
         ks, vs = [], []
-        for i, w in enumerate(window_schedule(cfg)):
-            p = layer(layers, i)
-            h, (k, v) = attn_full(cfg, p["attn"],
-                                  rms_norm(x, p["norm1"], cfg.norm_eps),
-                                  window=w)
-            x = x + h
-            x = x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+        for p, w in zip(layers, window_schedule(cfg)):
+            if remat:
+                x = _remat(_dense_block, cfg, p, x, w)
+                continue
+            x, (k, v) = _dense_block(cfg, p, x, w)
             if collect_cache:
                 ks.append(k)
                 vs.append(v)
@@ -155,16 +196,18 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                    else None)
 
     convs, ssms, ks, vs = [], [], [], []
-    for i in range(cfg.n_layers):
-        p = layer(layers, i)
-        h = mamba_full(cfg, p["mamba"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                       return_state=collect_cache)
-        if collect_cache:
-            h, st = h
-            convs.append(st["conv"])
-            ssms.append(st["ssm"])
-        x = x + h
+    for i, p in enumerate(layers):
+        if remat:
+            x = _remat(_mamba_block, cfg, p, x)
+        else:
+            x, st = _mamba_block(cfg, p, x, collect_cache)
+            if collect_cache:
+                convs.append(st["conv"])
+                ssms.append(st["ssm"])
         if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            if remat:
+                x = _remat(_shared_block, cfg, params["shared"], x)
+                continue
             x, (k, v) = _shared_block(cfg, params["shared"], x)
             if collect_cache:
                 ks.append(k)
@@ -175,6 +218,17 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     if cfg.family == "ssm":
         return x, states
     return x, (torch.stack(ks), torch.stack(vs), states)
+
+
+# ------------------------------------------------------------------- loss
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets",
+    optional "mask"} tensors on the params' device). The reference adds
+    0.01 times the MoE load-balancing loss, which no ported family has.
+    The layers are recomputed in the backward pass when ``cfg.remat``."""
+    x, _ = forward_full(cfg, params, batch["tokens"], remat=cfg.remat)
+    return cross_entropy(_logits(cfg, params, x), batch["targets"],
+                         batch.get("mask"))
 
 
 # ------------------------------------------------------------------ decode
@@ -208,19 +262,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     check_family(cfg)
     x = _embed(cfg, params, tokens)
     pos = cache["pos"]
-    layers = params["layers"]
+    layers = split_layers(params["layers"], cfg.n_layers)
 
     if cfg.family in ("dense", "vlm"):
-        for i, w in enumerate(window_schedule(cfg)):
-            p = layer(layers, i)
+        for i, (p, w) in enumerate(zip(layers, window_schedule(cfg))):
             x = x + attn_decode(cfg, p["attn"],
                                 rms_norm(x, p["norm1"], cfg.norm_eps),
                                 cache["k"][i], cache["v"][i], pos, window=w)
             x = x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
     else:
         shared = params.get("shared")
-        for i in range(cfg.n_layers):
-            p = layer(layers, i)
+        for i, p in enumerate(layers):
             y, conv, ssm = mamba_decode(
                 cfg, p["mamba"], rms_norm(x, p["norm1"], cfg.norm_eps),
                 cache["conv"][i], cache["ssm"][i])

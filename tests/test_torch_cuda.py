@@ -3,9 +3,11 @@ same CUDA tensors, the evaluator on the card against the CPU, the two
 device twins (NSGA-II rank/crowding, batched PHV) on the card against the
 host, the multi-start search on the card against the CPU, the trace link
 report's K4 against its plain version, the smoke-size hybrid served on
-the card against the CPU, and the fleet (``stage_dist``): the ``cuda``
+the card against the CPU, the fleet (``stage_dist``): the ``cuda``
 executor against ``serial`` and an interrupted run resumed, both byte for
-byte.
+byte; and training: the K5/K6 autograd Functions against autograd through
+the plain versions, and smoke-size train steps on the card against the
+CPU.
 
 Marked ``cuda``: without a card every test skips (decided inside the
 fixture, never at import). On a machine with one:
@@ -500,3 +502,76 @@ def test_evaluator_rows_do_not_depend_on_the_batch_on_card(dev):
                                  split_devices=split).batch_aux(designs)
         assert np.array_equal(got, rows)
         assert np.array_equal(got_aux["net_lat"], aux["net_lat"])
+
+
+@pytest.mark.parametrize("case", [(2, 4, 4, 128, 80, True, None),
+                                  (2, 8, 2, 200, 64, True, 64)])
+def test_attention_fn_on_card_is_the_kernel_forward_and_plain_backward(
+        dev, case):
+    b, h, kh, s, d, causal, window = case
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               .requires_grad_(True)
+               for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d)))
+    g = torch.randn((b, h, s, d), generator=gen, device=dev).bfloat16()
+    ops.reset_launches()
+    out = ops.attention(q, k, v, causal=causal, window=window)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert ops.launches()["flash_attention"] == 1
+    with torch.no_grad():
+        assert torch.equal(out, ops.attention(q, k, v, causal=causal,
+                                              window=window))
+    want = torch.autograd.grad(
+        ref.attention_ref(q, k, v, causal=causal, window=window),
+        (q, k, v), g)
+    for a, w in zip(grads, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("s", [256, 100])
+def test_ssd_fn_on_card_is_the_kernel_forward_and_plain_backward(dev, s):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, s, 4, 64), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((2, s, 4), generator=gen, device=dev)) * 0.1
+    a = -torch.exp(torch.randn(4, generator=gen, device=dev) * 0.3)
+    bm = torch.randn((2, s, 32), generator=gen, device=dev) * 0.5
+    cm = torch.randn((2, s, 32), generator=gen, device=dev) * 0.5
+    d = torch.full((4,), 0.5, device=dev)
+    args = [t.requires_grad_(True) for t in (x, dt, a, bm, cm, d)]
+    g = torch.randn(x.shape, generator=gen, device=dev)
+    ops.reset_launches()
+    out = ops.ssd(*args, chunk=64)
+    grads = torch.autograd.grad(out, args, g)
+    assert ops.launches()["ssd"] == 1
+    want = torch.autograd.grad(ref.ssd_padded_ref(*args, chunk=64), args, g)
+    for a_, w in zip(grads, want):
+        assert torch.equal(a_, w)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "yi-6b"])
+def test_smoke_train_steps_on_card_match_cpu(dev, arch):
+    from repro_torch.ckpt.checkpoint import tree_leaves, tree_unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.models import build_train
+    from repro_torch.train import OptConfig, make_train_fns
+
+    cfg = get_config(arch, smoke=True).scaled(compute_dtype=torch.float32)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=4))
+    opt = OptConfig(lr=1e-2, warmup_steps=2)
+    init, _ = make_train_fns(build_train(cfg, device="cpu"), Policy(), opt)
+    state0 = init(0)
+    losses = {}
+    for device in ("cpu", dev):
+        _, step = make_train_fns(build_train(cfg, device=device), Policy(),
+                                 opt)
+        state = tree_unflatten(state0, [t.detach().to(device, copy=True)
+                                        for t in tree_leaves(state0)])
+        for p in tree_leaves(state["params"]):
+            p.requires_grad_(True)
+        losses[str(device)] = [step(state, data.batch(i))[1]["loss"].item()
+                               for i in range(5)]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -36,6 +36,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "import repro_torch.ckpt, repro_torch.dist, repro_torch.noc.server\n"
         "import repro_torch.dist.worker, repro_torch.noc.server.client\n"
+        "import repro_torch.data, repro_torch.train, repro_torch.launch.train\n"
+        "import repro_torch.dist.sharding, repro_torch.train.train_step\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -51,6 +53,10 @@ def test_no_source_of_the_port_imports_jax_or_repro():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
     assert ROOT / "src" / "repro_torch" / "models" / "transformer.py" in files
+    for mod in ("train/trainer.py", "train/train_step.py",
+                "train/optimizer.py", "train/grad_compress.py",
+                "data/pipeline.py", "dist/sharding.py", "launch/train.py"):
+        assert ROOT / "src" / "repro_torch" / mod in files
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
@@ -108,3 +114,32 @@ def test_serving_entry_points_default_to_cuda():
     out = Engine(model, ServeConfig(max_new_tokens=2)).generate(
         np.ones((1, 4), np.int32))
     assert out.shape == (1, 2)
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.train import main
+    from repro_torch.models import build_train
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    cfg = get_config("yi-6b", smoke=True).scaled(compute_dtype=torch.float32)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=8,
+                                  global_batch=2))
+    tcfg = TrainConfig(steps=1, ckpt_dir=str(tmp_path / "t"))
+    if torch.cuda.is_available():
+        assert build_train(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_train(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Trainer(build_train(cfg), Policy(), OptConfig(), data, tcfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--arch", "yi-6b", "--smoke", "--steps", "1",
+                  "--ckpt-dir", str(tmp_path / "l")])
+    model = build_train(cfg, device="cpu")
+    out = Trainer(model, Policy(), OptConfig(), data, tcfg).run()
+    assert out["final_step"] == 1
+    assert all(p.device.type == "cpu" for p in
+               out["state"]["params"]["layers"]["attn"].values())

@@ -60,8 +60,8 @@ def test_port_configs_equal_the_references():
                     if k not in ("dtype", "compute_dtype")}
             theirs = {k: v for k, v in vars(rcfg).items() if k in mine}
             assert mine == theirs, name
-            assert set(vars(rcfg)) - set(vars(cfg)) == {"remat",
-                                                        "unroll_layers"}
+            assert set(vars(rcfg)) - set(vars(cfg)) == {"unroll_layers"}
+            assert cfg.remat == rcfg.remat
             assert cfg.param_count() == rcfg.param_count()
             assert cfg.resolved_head_dim == rcfg.resolved_head_dim
             assert str(cfg.compute_dtype).endswith("bfloat16")
