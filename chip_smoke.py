@@ -44,7 +44,8 @@ each raising on failure:
      NoC kernel's device time and launches in that run;
   8. the two LLM kernels (K5 attention, K6 SSD) against their plain
      versions on the card at the serving path's shapes and at ragged,
-     GQA, windowed, bidirectional and f32 ones (and K6 with a partial last
+     GQA, windowed, bidirectional and f32 ones, qwen3-moe's prefill and
+     whisper-base's encoder (and K6 with a partial last
      head group), each run twice and bit-identical;
   9. the serving path: zamba2-2.7b at full width (random weights from a
      seeded generator) generating 16 tokens for 8 prompts of 512 through
@@ -92,7 +93,26 @@ each raising on failure:
      optimizer named); (c) zamba2 and yi-6b smoke in f32 from one initial
      state: 20 ``Trainer.run`` steps card against CPU, a card run crashed
      after step 12 and resumed from its step-8 checkpoint against the
-     uninterrupted one, and the train launcher on the card.
+     uninterrupted one, and the train launcher on the card;
+ 14. MoE and encoder-decoder serving, after phase 13's state is released:
+     (a) qwen3-moe-30b-a3b at full width (48 layers, 128 experts top-8,
+     bf16 parameters with the router in f32: 61 GB; the only cut) serving
+     8 prompts of 512 for 16 new tokens through ``Engine``, with K5's 48
+     launches counted over one generate, two generates equal, peak memory
+     under 70 GB, the (token, choice) pairs layer 0's capacity drops, and
+     the prefill against the same prefill through the plain attention
+     (logits within 5% of scale; argmax equal on every row but at most one
+     knife-edge row, whose plain top-2 margin is under the max |logit
+     diff|); a prefill and a generate under torch.profiler, with the MoE
+     layer's ranges (route, dispatch, experts, combine); (b) whisper-base
+     at full width on 8 x 1500 seeded stub frames, 8-token prompts and 32
+     new tokens by ``build(...).prefill`` and a greedy ``decode_step``
+     loop: 6 K5 launches (the encoder's), two generates equal, the encoder
+     states against the plain version; (c) the qwen3-moe, moonshot and
+     whisper smoke configs in f32: tokens card = CPU, and one
+     ``build_train`` loss of qwen3-moe and of whisper card against CPU
+     (1e-5); (d) K5 timed at the two new shapes (phase 8 holds it against
+     its plain version there) beside its plain version, SDPA and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.
@@ -335,6 +355,8 @@ ATTN_CASES = (
     (1, 4, 4, 200, 32, False, None, "float32"),     # bidirectional, f32
     (2, 8, 2, 333, 80, True, None, "bfloat16"),     # off every tile, GQA
     (1, 4, 4, 200, 32, False, None, "bfloat16"),    # bidirectional
+    (8, 32, 4, 512, 128, True, None, "bfloat16"),   # qwen3-moe prefill
+    (8, 8, 8, 1500, 64, False, None, "bfloat16"),   # whisper-base encoder
 )
 #: (B, S, H, P, N, chunk): the serving path's shape first.
 SSD_CASES = (
@@ -1932,6 +1954,368 @@ def train_smoke_card_vs_cpu(torch, ops, dev) -> None:
               f"card: launches {json.dumps(launched)}")
 
 
+# ------------------------------------------------- MoE and encdec (14)
+#: Phase 14 (a): qwen3-moe-30b-a3b at full width, bf16 parameters (the
+#: only cut: f32 parameters are 122 GB), 8 prompts of 512, 16 new tokens.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 8, 512, 16
+#: The build and the two generates must fit one copy of the weights:
+#: peak device memory, GB.
+MOE_PEAK_GB = 70.0
+#: At most this many prefill rows may part from the plain versions'
+#: argmax, and only at a knife-edge: their plain top-2 margin under the
+#: measured max |logit diff| (a bf16 K5 can flip a near-tie in a router
+#: and so a token's experts).
+MOE_KNIFE_ROWS = 1
+#: Phase 14 (b): whisper-base at full width: 8 windows of 1500 frames
+#: (30 s of audio), prompts of 8 tokens, 32 new tokens. Its encoder states
+#: through K5 against the plain version: max |diff| as a share of the
+#: largest |state|.
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_NEW = 8, 1500, 8, 32
+ENC_REL_TOL = PREFILL_REL_TOL
+#: Phase 14 (c): smoke-size losses, card against CPU, relative.
+ENCDEC_MOE_LOSS_RTOL = 1e-5
+#: The MoE layer's profiler ranges (models/moe.py).
+MOE_RANGES = {f"moe.{part}": (f"moe.{part}",)
+              for part in ("route", "dispatch", "experts", "combine")}
+GEMM_SYMBOLS = ("gemm", "nvjet", "xmma", "cutlass")
+K5_SYMBOLS = ("flash_tc_kernel", "flash_kernel")
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def hold_prefill(torch, ops, ref, model, tokens, max_len, label) -> dict:
+    """``model``'s prefill through the kernels against the same prefill
+    with ``ops.attention`` pointed at its plain version: logits within
+    PREFILL_REL_TOL of the scale; the argmax equal on every row but at most
+    MOE_KNIFE_ROWS knife-edge rows (plain top-2 margin under the max
+    |logit diff|), each printed."""
+    logits, _ = model.prefill(tokens, max_len)
+    kernel = ops.attention
+    try:
+        ops.attention = ref.attention_ref
+        plain, _ = model.prefill(tokens, max_len)
+    finally:
+        ops.attention = kernel
+    _sync(torch, tokens.device)
+    b = tokens.shape[0]
+    lg = logits.float().reshape(b, -1)
+    pl = plain.float().reshape(b, -1)
+    check(bool(torch.isfinite(lg).all()), f"{label}: non-finite logits")
+    scale = float(pl.abs().max())
+    diff = float((lg - pl).abs().max())
+    same = lg.argmax(-1) == pl.argmax(-1)
+    top2 = pl.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    parted = (~same).nonzero().flatten().tolist()
+    knife = [i for i in parted if float(margin[i]) < diff]
+    check(diff <= PREFILL_REL_TOL * scale,
+          f"{label}: max |logit diff| {diff} > {PREFILL_REL_TOL} x {scale}")
+    check(knife == parted and len(knife) <= MOE_KNIFE_ROWS,
+          f"{label}: next-token argmax differs on rows {parted} (plain top-2 "
+          f"margins {[float(margin[i]) for i in parted]}, max |diff| {diff};"
+          f" at most {MOE_KNIFE_ROWS} knife-edge row may part)")
+    for i in knife:
+        print(f"{label}: row {i} parts at a knife-edge: plain top-2 margin "
+              f"{float(margin[i]):.4g} < max |logit diff| {diff:.4g}")
+    print(f"{label} against the plain versions on the card: max |logit "
+          f"diff| {diff:.4g} = {diff / scale:.4g} of the logits' scale "
+          f"{scale:.4g} (tolerance {PREFILL_REL_TOL}); next-token argmax "
+          f"agrees on {int(same.sum())}/{b} rows; plain top-2 margins "
+          f"{[round(m, 4) for m in margin.tolist()]}")
+    return {"diff": diff, "scale": scale, "knife": knife}
+
+
+def host_syncs(torch, fn) -> int:
+    """The host-device synchronisations one call of ``fn`` makes, as
+    PyTorch's sync debug mode reports them (one warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def moe_dropped_at_layer0(torch, model, tokens) -> tuple[int, int, int]:
+    """(dropped, routed, capacity): the (token, choice) pairs that layer
+    0's capacity drops in a prefill of ``tokens``, through the model's own
+    embedding, attention and norms."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.attention import attn_full
+    from repro_torch.models.common import rms_norm
+
+    cfg, rp = model.cfg, model.run_params
+    with torch.inference_mode():
+        x = transformer._embed(cfg, rp, tokens)
+        p0 = transformer.split_layers(rp["layers"], cfg.n_layers)[0]
+        h, _ = attn_full(cfg, p0["attn"], rms_norm(x, p0["norm1"],
+                                                   cfg.norm_eps), window=0)
+        z = rms_norm(x + h, p0["norm2"], cfg.norm_eps).reshape(-1,
+                                                               cfg.d_model)
+        g_size = min(moe.GROUP_SIZE, z.shape[0])
+        n = z.shape[0] // g_size
+        r = moe.route(cfg, p0["moe"]["router"],
+                      z[:n * g_size].reshape(n, g_size, -1))
+        return int((~r.kept).sum()), r.kept.numel(), r.capacity
+
+
+def serve_moe_full_width(torch, ops, ref, dev, batch=MOE_BATCH,
+                         prompt_len=MOE_PROMPT, new=MOE_NEW) -> dict:
+    """Phase 14 (a): qwen3-moe-30b-a3b at full width with bf16 parameters
+    (the router f32) served through the Engine: K5 launches counted over
+    one generate, two generates equal, peak memory, the capacity's drops
+    at layer 0, and the prefill held against the plain versions."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(MOE_ARCH).scaled(dtype=torch.bfloat16)
+    check(cfg.compute_dtype == torch.bfloat16, "expected bf16 compute")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in model.buffers())
+    w1 = model.params["layers"]["moe"]["w1"]
+    check(model.run_params["layers"]["moe"]["w1"] is w1,
+          "bf16 expert weights were copied for serving")
+    check(model.params["layers"]["moe"]["router"].dtype == torch.float32,
+          "the router is not f32")
+    print(f"{MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, expert d_ff "
+          f"{cfg.moe_d_ff}; {n_params} parameters in bf16 (router f32), "
+          f"the config's analytic count {cfg.param_count()} (it counts "
+          f"each layer's two norms twice); built in {build_s:.1f} s")
+    engine = Engine(model, ServeConfig(max_new_tokens=new,
+                                       max_len=prompt_len + new))
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(batch, prompt_len)).astype(np.int32)
+
+    ops.reset_launches()
+    out = engine.generate(prompts)
+    _sync(torch, dev)
+    launches = {k: n for k, n in ops.launches().items() if k in LLM_KERNELS}
+    cold = dict(engine.stats)
+    check(launches == {"flash_attention": cfg.n_layers, "ssd": 0},
+          f"launches {launches}, expected K5 {cfg.n_layers} (one per layer's "
+          f"prefill attention; decode runs no kernel)")
+    check(out.shape == (batch, new) and out.dtype == np.int32,
+          f"generate returned {out.shape} {out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of range")
+    t0 = time.perf_counter()
+    out2 = engine.generate(prompts)
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    check(np.array_equal(out, out2), "two generates differ")
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+               else 0.0)
+    check(peak_gb < MOE_PEAK_GB, f"peak memory {peak_gb:.2f} GB >= "
+          f"{MOE_PEAK_GB} GB: two copies of the weights?")
+    prefill_ms = st["prefill_s"] * 1e3
+    decode_ms = st["decode_s"] * 1e3 / st["decode_steps"]
+    tokens = torch.as_tensor(prompts.astype(np.int64), device=dev)
+    dropped, routed, cap = moe_dropped_at_layer0(torch, model, tokens)
+    print(f"generate (warm): wall {wall * 1e3:.1f} ms, prefill "
+          f"{prefill_ms:.1f} ms, decode {decode_ms:.2f} ms per step "
+          f"({st['decode_steps']} steps of batch {batch}), "
+          f"{out.size / wall:.1f} generated tokens/s; peak memory "
+          f"{peak_gb:.2f} GB (build included); first (cold) generate: "
+          f"prefill {cold['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{cold['decode_s'] * 1e3:.1f} ms")
+    print(f"launches in one generate: {json.dumps(launches)}; layer 0 of the "
+          f"prefill drops {dropped} of {routed} (token, choice) pairs at "
+          f"capacity {cap} per expert and group of "
+          f"{min(1024, batch * prompt_len)}")
+    print(f"sample tokens: {out[0].tolist()}")
+    if dev.type == "cuda":
+        _, cache = model.prefill(tokens, prompt_len + new)
+        step = torch.as_tensor(out[:, :1].astype(np.int64), device=dev)
+        print(f"host syncs in one decode step: "
+              f"{host_syncs(torch, lambda: model.decode_step(cache, step))}"
+              f" ({cfg.n_layers} layers)")
+        del cache
+    hold_prefill(torch, ops, ref, model, tokens, prompt_len + new,
+                 f"{MOE_ARCH} prefill")
+    return {"engine": engine, "prompts": prompts, "wall": wall,
+            "prefill_s": st["prefill_s"], "tokens": tokens,
+            "max_len": prompt_len + new}
+
+
+def greedy_encdec(torch, model, frames, prompts, new):
+    """Greedy generation of an encoder-decoder: prefill, then ``new - 1``
+    decode steps, the first maximum on ties. Returns (tokens (B, new)
+    int32 numpy, prefill s, decode s), each time ending in a sync."""
+    dev = model.device
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(frames, prompts, prompts.shape[1] + new)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    out = [tok]
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for _ in range(new - 1):
+        logits, cache = model.decode_step(cache, tok)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tok)
+    result = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+    return result, t1 - t0, time.perf_counter() - t1
+
+
+def serve_whisper_full_width(torch, ops, ref, dev, batch=WHISPER_BATCH,
+                             n_frames=WHISPER_FRAMES,
+                             prompt_len=WHISPER_PROMPT,
+                             new=WHISPER_NEW) -> None:
+    """Phase 14 (b): whisper-base at full width: ``build(...).prefill``
+    and a greedy decode loop on seeded stub frames; K5 launches counted
+    (all in the encoder), two generates equal, the encoder states held
+    against the plain version on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config("whisper-base")
+    model = build(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.standard_normal(
+        (batch, n_frames, cfg.d_model)).astype(np.float32), device=dev)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(batch, prompt_len)), device=dev)
+    n_params = sum(v.numel() for v in model.buffers())
+    print(f"whisper-base: {cfg.encoder_layers} encoder and {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {n_params} parameters; "
+          f"frames ({batch}, {n_frames}, {cfg.d_model}), prompts of "
+          f"{prompt_len}, {new} new tokens")
+    ops.reset_launches()
+    out, _, _ = greedy_encdec(torch, model, frames, prompts, new)
+    launches = {k: n for k, n in ops.launches().items() if k in LLM_KERNELS}
+    check(launches == {"flash_attention": cfg.encoder_layers, "ssd": 0},
+          f"launches {launches}, expected K5 {cfg.encoder_layers} (the "
+          f"encoder's layers; decode runs no kernel)")
+    check(out.shape == (batch, new), f"generated {out.shape}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of range")
+    out2, prefill_s, decode_s = greedy_encdec(torch, model, frames, prompts,
+                                              new)
+    check(np.array_equal(out, out2), "two whisper generates differ")
+    print(f"whisper generate (warm): prefill {prefill_s * 1e3:.2f} ms "
+          f"(encode + cross K/V + {prompt_len} decode steps), decode "
+          f"{decode_s * 1e3 / (new - 1):.2f} ms per step, "
+          f"{out.size / (prefill_s + decode_s):.1f} generated tokens/s; "
+          f"launches {json.dumps(launches)}")
+    print(f"sample tokens: {out[0].tolist()}")
+    if dev.type == "cuda":
+        _, cache = model.prefill(frames, prompts, prompt_len + new)
+        step = torch.as_tensor(out[:, :1].astype(np.int64), device=dev)
+        print(f"host syncs in one whisper decode step: "
+              f"{host_syncs(torch, lambda: model.decode_step(cache, step))}"
+              f" ({cfg.n_layers} decoder layers)")
+        del cache
+
+    enc = model.encode(frames)
+    kernel = ops.attention
+    try:
+        ops.attention = ref.attention_ref
+        plain = model.encode(frames)
+    finally:
+        ops.attention = kernel
+    _sync(torch, dev)
+    check(bool(torch.isfinite(enc).all()), "non-finite encoder states")
+    scale = float(plain.float().abs().max())
+    diff = float((enc.float() - plain.float()).abs().max())
+    check(diff <= ENC_REL_TOL * scale, f"encoder states: max |diff| {diff} >"
+          f" {ENC_REL_TOL} x {scale}")
+    print(f"encoder states against the plain version on the card: max "
+          f"|diff| {diff:.4g} = {diff / scale:.4g} of their scale "
+          f"{scale:.4g} (tolerance {ENC_REL_TOL})")
+
+
+def encdec_moe_smoke_card_vs_cpu(torch, dev) -> None:
+    """Phase 14 (c): the qwen3-moe, moonshot and whisper smoke configs in
+    f32 generate the same tokens on the card and the CPU; one
+    ``build_train`` loss of qwen3-moe and of whisper, card against CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build, build_train
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train.train_step import batch_to
+
+    rng = np.random.default_rng(1)
+    for arch in (MOE_ARCH, "moonshot-v1-16b-a3b", "whisper-base"):
+        cfg = get_config(arch, smoke=True).scaled(compute_dtype=torch.float32)
+        on_card = build(cfg, seed=1, device=dev)
+        on_cpu = build(cfg, _to_cpu(on_card.params), device="cpu")
+        if cfg.family == "encdec":
+            frames = torch.as_tensor(rng.standard_normal(
+                (4, 200, cfg.d_model)).astype(np.float32))
+            prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 8)))
+            a = greedy_encdec(torch, on_card, frames, prompts, 8)[0]
+            b = greedy_encdec(torch, on_cpu, frames, prompts, 8)[0]
+        else:
+            prompts = rng.integers(1, cfg.vocab, (4, 100)).astype(np.int32)
+            scfg = ServeConfig(max_new_tokens=8, max_len=128)
+            a = Engine(on_card, scfg).generate(prompts)
+            b = Engine(on_cpu, scfg).generate(prompts)
+        check(np.array_equal(a, b), f"smoke {arch}: card and CPU tokens "
+              f"differ")
+        print(f"smoke {arch} (f32): card and CPU generate identical tokens")
+
+    for arch in (MOE_ARCH, "whisper-base"):
+        cfg = get_config(arch, smoke=True).scaled(compute_dtype=torch.float32)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                      global_batch=4, seed=0))
+        batch = (data.frames_batch(0, cfg.d_model, 16)
+                 if cfg.family == "encdec" else data.batch(0))
+        card_model = build_train(cfg, device=dev)
+        params = card_model.init(0)
+        with torch.no_grad():
+            card = card_model.loss(params, batch_to(batch, dev)).item()
+            cpu = build_train(cfg, device="cpu").loss(
+                _to_cpu(params), batch_to(batch, "cpu")).item()
+        gap = abs(card - cpu) / abs(cpu)
+        check(gap <= ENCDEC_MOE_LOSS_RTOL, f"smoke {arch}: loss card {card} "
+              f"against CPU {cpu}: {gap} > {ENCDEC_MOE_LOSS_RTOL}")
+        print(f"smoke {arch} (f32): build_train loss card {card:.6f}, CPU "
+              f"{cpu:.6f}, relative gap {gap:.3g} (tolerance "
+              f"{ENCDEC_MOE_LOSS_RTOL})")
+
+
+def time_k5_new_shapes(torch, ops, ref, dev) -> None:
+    """K5 at qwen3-moe's prefill shape and whisper's encoder shape: the
+    kernel, its plain version, PyTorch's own attention call and the
+    bound, each printed."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case in ATTN_CASES[-2:]:
+        b, h, kh, s, d, causal, _, _ = case
+        q, k, v = attn_inputs(torch, case, dev)
+        ms = time_ms(lambda: ops.attention(q, k, v, causal=causal))
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal),
+                           reps=5)
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                      enable_gqa=True))
+        pairs = b * h * s * (s + 1) // 2 if causal else b * h * s * s
+        n_bytes = 2 * (2 * b * h * s * d + 2 * b * kh * s * d)
+        bound_ms, bound_by = bound(n_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)
+        print(f"K5 B={b} H={h} KH={kh} S={s} D={d} causal={causal} bf16: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms by {bound_by}: {n_bytes / 1e6:.1f} MB, "
+              f"{4 * d * pairs / 1e9:.2f} GFLOP)")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2289,6 +2673,34 @@ def main(argv: list[str]) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_smoke_card_vs_cpu(torch, ops, dev)
+
+    # ------------------------------------------------------------ phase 14
+    phase("14 MoE and encoder-decoder serving: qwen3-moe-30b-a3b and "
+          "whisper-base at full width")
+    print(f"card: {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_served = serve_moe_full_width(torch, ops, ref, dev)
+    engine = moe_served["engine"]
+    trace_main_path(
+        torch, lambda: engine.model.prefill(moe_served["tokens"],
+                                            moe_served["max_len"]),
+        moe_served["prefill_s"], "phase 14's warm prefill",
+        "trace of one qwen3-moe prefill",
+        symbols={"K5 flash_attention": K5_SYMBOLS, "GEMMs": GEMM_SYMBOLS},
+        ranges=MOE_RANGES)
+    trace_main_path(
+        torch, lambda: engine.generate(moe_served["prompts"]),
+        moe_served["wall"], "phase 14's warm generate",
+        "trace of one qwen3-moe generate",
+        symbols={"K5 flash_attention": K5_SYMBOLS, "GEMMs": GEMM_SYMBOLS},
+        ranges=MOE_RANGES)
+    del moe_served, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_whisper_full_width(torch, ops, ref, dev)
+    encdec_moe_smoke_card_vs_cpu(torch, dev)
+    time_k5_new_shapes(torch, ops, ref, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,7 +11,8 @@ nothing of it:
     same JSON (``design_to_json`` / ``RunResult.to_json``) and read each
     other's with their own ``from_json``;
   * a reference model's parameter pytree, as nested dicts of numpy arrays
-    with stacked ``(L, ...)`` layer leaves, becomes the port's parameter
+    with stacked ``(L, ...)`` layer leaves (``encoder``/``decoder`` stacks
+    for the encoder-decoder family), becomes the port's parameter
     tree for :func:`repro_torch.models.build` (:func:`params_from_jax`);
   * a reference trainer state (params, Adam moments, step and the error
     feedback, as numpy) becomes the port's train state
@@ -59,11 +60,17 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
     """The port's parameter tree from a reference model's, leaf for leaf
     (the two share the layout). Leaves become CPU tensors of the same dtype;
     ``build(cfg, params, device=...)`` moves them."""
-    expected = {"embed", "final_norm", "layers"}
-    if not cfg.tie_embeddings:
-        expected.add("head")
-    if cfg.family == "hybrid":
-        expected.add("shared")
+    if cfg.family == "encdec":
+        expected = {"embed", "head", "enc_norm", "final_norm", "encoder",
+                    "decoder"}
+        stacks = {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+    else:
+        expected = {"embed", "final_norm", "layers"}
+        stacks = {"layers": cfg.n_layers}
+        if not cfg.tie_embeddings:
+            expected.add("head")
+        if cfg.family == "hybrid":
+            expected.add("shared")
     if set(tree) != expected:
         raise ValueError(f"{cfg.name}: expected top-level keys "
                          f"{sorted(expected)}, got {sorted(tree)}")
@@ -72,9 +79,13 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict:
         if isinstance(node, dict):
             return {k: conv(v, f"{path}.{k}") for k, v in node.items()}
         arr = np.asarray(node)
-        if path.startswith("layers.") and arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"{path}: expected {cfg.n_layers} stacked "
-                             f"layers, got shape {arr.shape}")
+        n = stacks.get(path.split(".")[0])
+        if n is not None and arr.shape[0] != n:
+            raise ValueError(f"{path}: expected {n} stacked layers, got "
+                             f"shape {arr.shape}")
+        if path.endswith(".moe.router") and arr.dtype != np.float32:
+            raise ValueError(f"{path}: the MoE router is f32, got "
+                             f"{arr.dtype}")
         return torch.from_numpy(np.array(arr, copy=True))
 
     return {k: conv(v, k) for k, v in tree.items()}

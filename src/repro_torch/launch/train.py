@@ -46,6 +46,11 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.smoke:
         cfg = cfg.scaled(compute_dtype=torch.float32)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{args.arch}: the encoder-decoder loss needs audio frames, and "
+            f"SyntheticLM's batches carry none (the reference's launcher "
+            f"cannot train it either)")
     model = build_train(cfg, device=args.device)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                                   global_batch=args.global_batch))

@@ -151,6 +151,33 @@ class MetaGenerator(torch.Generator):
     device = torch.device("meta")
 
 
+def stack_layers(n: int, draw) -> dict:
+    """``n`` layer trees, drawn one at a time by ``draw()``, as one tree of
+    stacked ``(n, ...)`` leaves. Each stacked leaf is allocated once and
+    filled layer by layer, so one layer's tree is the only other copy held
+    (the whole model need not fit twice)."""
+    def empty(tree):
+        if isinstance(tree, dict):
+            return {k: empty(v) for k, v in tree.items()}
+        return torch.empty((n, *tree.shape), dtype=tree.dtype,
+                           device=tree.device)
+
+    def put(out, tree, i):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put(out[k], v, i)
+            else:
+                out[k][i] = v
+
+    out = None
+    for i in range(n):
+        tree = draw()
+        if out is None:
+            out = empty(tree)
+        put(out, tree, i)
+    return out
+
+
 def init_dense(gen: torch.Generator, shape, scale_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights drawn from ``gen`` on its device."""

@@ -1,7 +1,8 @@
-"""Unified model interface: ``build(cfg) -> Model``, an ``nn.Module`` that
-holds the parameters on one explicit device and serves ``prefill`` /
-``decode_step`` / ``init_cache``; ``build_train(cfg) -> TrainModel``, the
-reference's ``init`` / ``loss`` pair that the train step builds on."""
+"""Unified model interface: ``build(cfg) -> Model`` (``EncDecModel`` for
+the encoder-decoder family), an ``nn.Module`` that holds the parameters on
+one explicit device and serves ``prefill`` / ``decode_step`` /
+``init_cache``; ``build_train(cfg) -> TrainModel``, the reference's
+``init`` / ``loss`` pair that the train step builds on."""
 
 from __future__ import annotations
 
@@ -11,12 +12,13 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .common import MetaGenerator, ModelConfig
 
 #: Leaves the reference casts to the compute dtype at every use (matmul
-#: weights, the conv, the embedding). The model casts them once: the same
-#: values, without a cast per call.
+#: weights, the experts' too, the conv, the embedding). The model casts
+#: them once: the same values, without a cast per call. The MoE router
+#: stays f32.
 _CAST = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3", "in_proj",
                    "out_proj", "conv_w", "conv_b", "embed", "head"})
 
@@ -34,17 +36,14 @@ def _map(tree: dict, fn) -> dict:
             for k, v in tree.items()}
 
 
-class Model(nn.Module):
-    """A decoder-only LM of the dense / VLM / SSM / hybrid families.
-
-    ``params`` is the reference's tree (stacked layer leaves) in the
-    parameter dtype; the leaves the reference casts to the compute dtype are
-    kept cast once, in ``run_params``. Every method runs under
-    ``torch.inference_mode``."""
+class _Weights(nn.Module):
+    """The parameters on one device. ``params`` is the reference's tree
+    (stacked layer leaves) in the parameter dtype; the leaves the reference
+    casts to the compute dtype are kept cast once, in ``run_params`` (the
+    same tensors where the two dtypes agree)."""
 
     def __init__(self, cfg: ModelConfig, params: dict, device):
         super().__init__()
-        transformer.check_family(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = _map(params, lambda k, v: v.to(self.device))
@@ -53,6 +52,15 @@ class Model(nn.Module):
         cd = cfg.compute_dtype
         self.run_params = _map(
             self.params, lambda k, v: v.to(cd) if k in _CAST else v)
+
+
+class Model(_Weights):
+    """A decoder-only LM of the dense / VLM / MoE / SSM / hybrid families.
+    Every method runs under ``torch.inference_mode``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, device):
+        transformer.check_family(cfg)
+        super().__init__(cfg, params, device)
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, max_len: int):
@@ -77,18 +85,64 @@ class Model(nn.Module):
                                       device=self.device)
 
 
+class EncDecModel(_Weights):
+    """A whisper-style encoder-decoder: the encoder reads stub frame
+    embeddings (B, S_enc, D). Every method runs under
+    ``torch.inference_mode``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, device):
+        if cfg.family != "encdec":
+            raise ValueError(f"{cfg.name}: EncDecModel takes the encdec "
+                             f"family, got {cfg.family}")
+        super().__init__(cfg, params, device)
+
+    @torch.inference_mode()
+    def encode(self, frames: torch.Tensor):
+        """frames (B, S_enc, D) -> encoder states (B, S_enc, D)."""
+        return encdec.encode(self.cfg, self.run_params,
+                             frames.to(self.device))
+
+    @torch.inference_mode()
+    def prefill(self, frames: torch.Tensor, tokens: torch.Tensor,
+                max_len: int):
+        """frames (B, S_enc, D), tokens (B, S) -> (last-position logits
+        (B, 1, V), cache)."""
+        return encdec.prefill(self.cfg, self.run_params,
+                              frames.to(self.device), tokens.to(self.device),
+                              max_len)
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1) -> (logits (B, 1, V), cache updated in place)."""
+        return encdec.decode_step(self.cfg, self.run_params, cache,
+                                  tokens.to(self.device))
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0,
+                   dtype=torch.bfloat16):
+        return encdec.init_cache(self.cfg, batch, max_len, enc_len, dtype,
+                                 device=self.device)
+
+
+def _family(cfg: ModelConfig):
+    """The module of ``cfg``'s family: ``encdec`` or ``transformer``."""
+    if cfg.family == "encdec":
+        return encdec
+    transformer.check_family(cfg)
+    return transformer
+
+
 def build(cfg: ModelConfig, params: dict | None = None, *, seed: int = 0,
-          device=None) -> Model:
+          device=None) -> Model | EncDecModel:
     """The model of ``cfg`` on ``device`` (a CUDA device unless the caller
     asks for the CPU). Without ``params`` the weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` on that device."""
-    transformer.check_family(cfg)
+    fam = _family(cfg)
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         with torch.inference_mode():
-            params = transformer.init_params(cfg, gen)
-    return Model(cfg, params, dev)
+            params = fam.init_params(cfg, gen)
+    return (EncDecModel if fam is encdec else Model)(cfg, params, dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,18 +165,19 @@ class TrainModel:
         gen = (MetaGenerator() if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
         with torch.no_grad():
-            params = transformer.init_params(self.cfg, gen)
+            params = _family(self.cfg).init_params(self.cfg, gen)
         for _, _, v in _leaves(params):
             v.requires_grad_(True)
         return params
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
-        """The scalar training loss of ``batch`` (tensors on the device)."""
-        return transformer.loss_fn(self.cfg, params, batch)
+        """The scalar training loss of ``batch`` (tensors on the device;
+        the encoder-decoder's holds ``"frames"`` too)."""
+        return _family(self.cfg).loss_fn(self.cfg, params, batch)
 
 
 def build_train(cfg: ModelConfig, device=None) -> TrainModel:
     """The training model of ``cfg`` on ``device`` (a CUDA device unless
     the caller asks for the CPU)."""
-    transformer.check_family(cfg)
+    _family(cfg)
     return TrainModel(cfg, resolve_device(device))

@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly for the dense / VLM / SSM / hybrid families.
+"""Decoder-only LM assembly for the dense / VLM / MoE / SSM / hybrid
+families.
 
 Parameters keep the reference's layout: stacked ``(L, ...)`` layer leaves,
 split into per-layer views once per forward (``torch.unbind``, so training
@@ -6,15 +7,14 @@ gives each stacked leaf one gradient stack) and run by a plain Python
 loop. Each layer's attention window is a Python int, so every
 full-sequence attention layer goes through the attention kernel. The
 zamba2-style hybrid runs ``attn_every`` mamba layers, then the one shared
-attention+MLP block, per site, with a KV cache per site.
+attention+MLP block, per site, with a KV cache per site. An MoE block is
+a dense block whose MLP is ``moe.moe_ffn``; the full-sequence forward sums
+its load-balancing aux losses over the layers.
 
 ``loss_fn`` is the training loss. With ``cfg.remat`` it recomputes every
 layer (each mamba layer, each shared-block site) in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
-
-MoE (``moe.py``) and the encoder-decoder family are not ported yet: they
-run no TPU kernel and are on neither the serving nor the training path of
-this port (ROADMAP.md Queue 1, item 13)."""
+The encoder-decoder family is ``encdec.py``."""
 
 from __future__ import annotations
 
@@ -23,17 +23,21 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_decode, attn_full, init_attn_layer
-from .common import ModelConfig, cross_entropy, init_dense, rms_norm
+from .common import (ModelConfig, cross_entropy, init_dense, rms_norm,
+                     stack_layers)
 from .mamba2 import init_mamba_layer, mamba_decode, mamba_full
+from .moe import init_moe_layer, moe_ffn
 
-FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+#: The families whose every layer is an attention block.
+ATTN_FAMILIES = ("dense", "vlm", "moe")
+AUX_LOSS_COEF = 0.01
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP.md Queue 1, "
-            f"item 13: MoE and encdec serving)")
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is not "
+                         f"decoder-only (encdec is models/encdec.py)")
 
 
 # ------------------------------------------------------------------- init
@@ -52,33 +56,27 @@ def _zeros(cfg: ModelConfig, gen: torch.Generator, *shape) -> torch.Tensor:
 
 def _init_block(cfg: ModelConfig, gen: torch.Generator) -> dict:
     d = cfg.d_model
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family not in ATTN_FAMILIES:
         return {"norm1": _zeros(cfg, gen, d),
-                "attn": init_attn_layer(cfg, gen),
-                "norm2": _zeros(cfg, gen, d),
-                "mlp": init_mlp_layer(cfg, gen)}
-    return {"norm1": _zeros(cfg, gen, d), "mamba": init_mamba_layer(cfg, gen)}
-
-
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    out = torch.empty((len(trees), *trees[0].shape), dtype=trees[0].dtype,
-                      device=trees[0].device)
-    for i, t in enumerate(trees):
-        out[i] = t
-    return out
+                "mamba": init_mamba_layer(cfg, gen)}
+    block = {"norm1": _zeros(cfg, gen, d), "attn": init_attn_layer(cfg, gen),
+             "norm2": _zeros(cfg, gen, d)}
+    if cfg.family == "moe":
+        block["moe"] = init_moe_layer(cfg, gen)
+    else:
+        block["mlp"] = init_mlp_layer(cfg, gen)
+    return block
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random weights drawn from ``gen`` on its device, in the reference's
-    distributions and layout (the values differ: another generator)."""
+    distributions and layout (the values differ: another generator). Each
+    stacked layer leaf is allocated once and filled layer by layer."""
     check_family(cfg)
     params = {
         "embed": init_dense(gen, (cfg.vocab, cfg.d_model), dtype=cfg.dtype),
         "final_norm": _zeros(cfg, gen, cfg.d_model),
-        "layers": _stack([_init_block(cfg, gen)
-                          for _ in range(cfg.n_layers)]),
+        "layers": stack_layers(cfg.n_layers, lambda: _init_block(cfg, gen)),
     }
     if not cfg.tie_embeddings:
         params["head"] = init_dense(gen, (cfg.d_model, cfg.vocab),
@@ -133,12 +131,20 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor):
     return x @ head.to(cfg.compute_dtype)
 
 
-def _dense_block(cfg, p, x, window):
+def _ffn(cfg, p, z):
+    """The block's MLP or MoE FFN: (y, the MoE aux loss or None)."""
+    if "moe" in p:
+        return moe_ffn(cfg, p["moe"], z)
+    return mlp(cfg, p["mlp"], z), None
+
+
+def _attn_block(cfg, p, x, window):
+    """A dense, VLM or MoE block: (x, aux or None, (k, v))."""
     h, kv = attn_full(cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
                       window=window)
     x = x + h
-    x = x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
-    return x, kv
+    y, aux = _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x + y, aux, kv
 
 
 def _mamba_block(cfg, p, x, return_state=False):
@@ -157,20 +163,27 @@ def _shared_block(cfg, shared, x):
     return x, kv
 
 
-def _remat(block, cfg, *args):
-    """``block(cfg, *args)[0]`` with its activations recomputed in the
-    backward pass instead of kept (the forward draws no random numbers, so
-    no RNG state is stashed)."""
-    return checkpoint(lambda *a: block(cfg, *a)[0], *args,
-                      use_reentrant=False, preserve_rng_state=False)
+def _remat(block, cfg, *args, n_out: int = 1):
+    """``block(cfg, *args)``'s first output (its first ``n_out`` when more
+    than one) with its activations recomputed in the backward pass instead
+    of kept (the forward draws no random numbers, so no RNG state is
+    stashed)."""
+    def run(*a):
+        out = block(cfg, *a)
+        return out[0] if n_out == 1 else out[:n_out]
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 # ------------------------------------------------------------ full forward
 def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                  collect_cache: bool = False, remat: bool = False):
-    """Full-sequence forward: (hidden (B, S, D), caches or None).
+    """Full-sequence forward: (hidden (B, S, D), the MoE aux loss summed
+    over the layers (a 0-d f32 tensor, zero for the other families),
+    caches or None).
 
-    caches: dense/vlm ``(k, v)`` stacked (L, B, S, KH, Dh); ssm
+    caches: dense/vlm/moe ``(k, v)`` stacked (L, B, S, KH, Dh); ssm
     ``{"conv", "ssm"}`` stacked (L, ...); hybrid ``(k, v, states)`` with k/v
     stacked per site (n_sites, ...) and the mamba states per layer. With
     ``remat`` (and autograd recording) each layer is recomputed in the
@@ -181,19 +194,22 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         raise ValueError("remat recomputes layers and collects no cache")
     x = _embed(cfg, params, tokens)
     layers = split_layers(params["layers"], cfg.n_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ATTN_FAMILIES:
         ks, vs = [], []
         for p, w in zip(layers, window_schedule(cfg)):
             if remat:
-                x = _remat(_dense_block, cfg, p, x, w)
-                continue
-            x, (k, v) = _dense_block(cfg, p, x, w)
-            if collect_cache:
-                ks.append(k)
-                vs.append(v)
-        return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache
-                   else None)
+                x, a = _remat(_attn_block, cfg, p, x, w, n_out=2)
+            else:
+                x, a, (k, v) = _attn_block(cfg, p, x, w)
+                if collect_cache:
+                    ks.append(k)
+                    vs.append(v)
+            if a is not None:
+                aux = aux + a
+        return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_cache
+                        else None)
 
     convs, ssms, ks, vs = [], [], [], []
     for i, p in enumerate(layers):
@@ -213,22 +229,23 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                 ks.append(k)
                 vs.append(v)
     if not collect_cache:
-        return x, None
+        return x, aux, None
     states = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
     if cfg.family == "ssm":
-        return x, states
-    return x, (torch.stack(ks), torch.stack(vs), states)
+        return x, aux, states
+    return x, aux, (torch.stack(ks), torch.stack(vs), states)
 
 
 # ------------------------------------------------------------------- loss
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets",
-    optional "mask"} tensors on the params' device). The reference adds
-    0.01 times the MoE load-balancing loss, which no ported family has.
-    The layers are recomputed in the backward pass when ``cfg.remat``."""
-    x, _ = forward_full(cfg, params, batch["tokens"], remat=cfg.remat)
-    return cross_entropy(_logits(cfg, params, x), batch["targets"],
-                         batch.get("mask"))
+    optional "mask"} tensors on the params' device) plus ``AUX_LOSS_COEF``
+    times the MoE load-balancing loss (zero for the other families). The
+    layers are recomputed in the backward pass when ``cfg.remat``."""
+    x, aux, _ = forward_full(cfg, params, batch["tokens"], remat=cfg.remat)
+    ce = cross_entropy(_logits(cfg, params, x), batch["targets"],
+                       batch.get("mask"))
+    return ce + AUX_LOSS_COEF * aux
 
 
 # ------------------------------------------------------------------ decode
@@ -240,7 +257,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     hd = cfg.resolved_head_dim
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,  # noqa: E731
                                                      device=device)
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ATTN_FAMILIES:
         kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
         return {"k": z(*kv, dt=dtype), "v": z(*kv, dt=dtype), "pos": 0}
     h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -264,12 +281,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     pos = cache["pos"]
     layers = split_layers(params["layers"], cfg.n_layers)
 
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ATTN_FAMILIES:
         for i, (p, w) in enumerate(zip(layers, window_schedule(cfg))):
             x = x + attn_decode(cfg, p["attn"],
                                 rms_norm(x, p["norm1"], cfg.norm_eps),
                                 cache["k"][i], cache["v"][i], pos, window=w)
-            x = x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+            x = x + _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))[0]
     else:
         shared = params.get("shared")
         for i, p in enumerate(layers):
@@ -297,9 +314,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     sized ``max_len``). SSM and hybrid families take the final recurrent
     state of every layer from the SSD kernel (one pass, no replay)."""
     b, s = tokens.shape
-    x, collected = forward_full(cfg, params, tokens, collect_cache=True)
+    x, _, collected = forward_full(cfg, params, tokens, collect_cache=True)
     dev = tokens.device
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ATTN_FAMILIES:
         k, v = collected
         cache = init_cache(cfg, b, max_len, dtype=k.dtype, device=dev)
     else:

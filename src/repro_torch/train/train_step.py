@@ -18,11 +18,12 @@ from . import grad_compress, optimizer
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A numpy batch on ``device``: token ids as int64, the mask as f32."""
+    """A numpy batch on ``device``: token ids as int64, the mask and the
+    encoder-decoder's frames as f32."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v, device=device)
-        out[k] = t.float() if k == "mask" else t.long()
+        out[k] = t.float() if k in ("mask", "frames") else t.long()
     return out
 
 

@@ -3,7 +3,8 @@ same CUDA tensors, the evaluator on the card against the CPU, the two
 device twins (NSGA-II rank/crowding, batched PHV) on the card against the
 host, the multi-start search on the card against the CPU, the trace link
 report's K4 against its plain version, the smoke-size hybrid served on
-the card against the CPU, the fleet (``stage_dist``): the ``cuda``
+the card against the CPU, the MoE FFN and whisper's smoke config on the
+card against the CPU, the fleet (``stage_dist``): the ``cuda``
 executor against ``serial`` and an interrupted run resumed, both byte for
 byte; and training: the K5/K6 autograd Functions against autograd through
 the plain versions, and smoke-size train steps on the card against the
@@ -276,6 +277,8 @@ def test_evaluator_card_matches_cpu(dev):
     (2, 8, 2, 333, 80, True, None),
     (1, 4, 4, 200, 32, False, None),
     (1, 2, 1, 100, 20, True, None),       # D % 8 != 0: plain tile loads
+    (8, 32, 4, 512, 128, True, None),     # qwen3-moe prefill
+    (8, 8, 8, 1500, 64, False, None),     # whisper-base encoder
 ])
 def test_attention_kernel_against_plain(dev, dtype, tol, b, h, kh, s, d,
                                         causal, window):
@@ -348,6 +351,51 @@ def test_smoke_hybrid_generates_the_same_tokens_on_card_and_cpu(dev):
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("t", [16, 1100])
+def test_moe_ffn_on_card_matches_cpu(dev, t):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True).scaled(
+        compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(t)
+    p = moe.init_moe_layer(cfg, gen)
+    x = torch.randn((1, t, cfg.d_model), generator=gen)
+    y, aux = moe.moe_ffn(cfg, p, x)
+    gy, gaux = moe.moe_ffn(cfg, {k: v.to(dev) for k, v in p.items()},
+                           x.to(dev))
+    np.testing.assert_allclose(gy.cpu().numpy(), y.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert abs(gaux.item() - aux.item()) <= 1e-6
+
+
+def test_smoke_whisper_generates_the_same_tokens_on_card_and_cpu(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config("whisper-base", smoke=True).scaled(
+        compute_dtype=torch.float32)
+    gpu = build(cfg, seed=3, device="cuda")
+    cpu = build(cfg, _to_cpu(gpu.params), device="cpu")
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 150, cfg.d_model)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 8)))
+    outs = []
+    for model in (gpu, cpu):
+        before = ops.launches()["flash_attention"]
+        logits, cache = model.prefill(frames, tokens, 16)
+        assert (ops.launches()["flash_attention"] - before
+                == (cfg.encoder_layers if model is gpu else 0))
+        toks = []
+        for _ in range(6):
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            toks.append(tok.cpu())
+            logits, cache = model.decode_step(cache, tok)
+        outs.append(torch.cat(toks, 1).numpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def test_rank_twin_on_card_matches_numpy(dev):

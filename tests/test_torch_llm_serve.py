@@ -1,6 +1,7 @@
 """The port's serving path on the CPU against the JAX package: the smoke
-configs of four families in f32 compute, with the reference's weights
-carried over by ``convert.params_from_jax``.
+configs of the decoder-only families (dense, MoE, SSM, hybrid) in f32
+compute, with the reference's weights carried over by
+``convert.params_from_jax``.
 
 For each: ``forward_full`` hidden states, ``prefill`` logits and caches,
 four ``decode_step``s, and ``Engine.generate`` tokens against the reference
@@ -25,9 +26,11 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models import build
 from repro_torch.serve import Engine, ServeConfig
 
-ARCHS = ["zamba2-2.7b", "mamba2-1.3b", "yi-6b", "gemma3-1b"]
+ARCHS = ["zamba2-2.7b", "mamba2-1.3b", "yi-6b", "gemma3-1b",
+         "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"]
 TOL = {"zamba2-2.7b": 5e-3, "mamba2-1.3b": 1e-4, "yi-6b": 1e-4,
-       "gemma3-1b": 1e-4}
+       "gemma3-1b": 1e-4, "qwen3-moe-30b-a3b": 1e-4,
+       "moonshot-v1-16b-a3b": 1e-4}
 BATCH, SEQ, MAX_LEN = 2, 24, 32
 
 
@@ -122,12 +125,14 @@ def test_greedy_takes_the_first_maximum():
     assert jnp.argmax(jnp.asarray(logits.numpy())[:, -1], -1).tolist() == [1, 0]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
-                                  "whisper-base"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_every_arch_builds_on_cpu(arch):
+    from repro_torch.models import EncDecModel, build_train
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(cfg, device="cpu")
+    model = build(cfg, seed=0, device="cpu")
+    assert isinstance(model, EncDecModel) == (cfg.family == "encdec")
+    params = build_train(cfg, device="cpu").init(0)
+    assert {k for k in params} == {k for k in model.params}
 
 
 def test_params_from_jax_checks_the_layout():

@@ -210,13 +210,12 @@ def test_trainer_restores_into_a_state_that_trains(tmp_path):
 
 
 # ------------------------------------------------------- every smoke arch
-TRAINABLE = [a for a in ARCH_NAMES
-             if get_config(a).family in ("dense", "vlm", "ssm", "hybrid")]
+TRAINABLE = [a for a in ARCH_NAMES if get_config(a).family != "encdec"]
 
 
 def test_every_ported_family_is_listed():
     assert {get_config(a).family for a in TRAINABLE} == {
-        "dense", "vlm", "ssm", "hybrid"}
+        "dense", "vlm", "moe", "ssm", "hybrid"}
 
 
 @pytest.mark.parametrize("arch", TRAINABLE)
@@ -235,13 +234,6 @@ def test_one_train_step_per_smoke_arch(arch):
     after = tree_leaves(state["params"])
     assert all(bool(torch.isfinite(p).all()) for p in after)
     assert any(not torch.equal(a, b) for a, b in zip(after, before))
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
-                                  "whisper-base"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train(get_config(arch, smoke=True), device="cpu")
 
 
 # ---------------------------------------------------------------- launcher

@@ -5,11 +5,12 @@ backward recomputes the plain version (the reference's custom_vjps,
 ``src/repro/kernels/ops.py:55-107``). On the CPU their forward is the
 plain version too, so the plumbing is held here: the Functions give the
 gradients of autograd through the plain versions, bit for bit. Then the
-loss and every gradient leaf of four smoke configs in f32 against
-``jax.value_and_grad`` of the reference's loss, with the reference's
-weights carried over by ``convert``: loss within 1e-5 relative, each leaf
-within 1e-5 of its largest magnitude (measured: 3.3e-7 and 2.2e-6 at
-most). The ``unbind`` split and remat must not change a gradient bit."""
+loss and every gradient leaf of six smoke configs (two MoE, their aux
+loss included) in f32 against ``jax.value_and_grad`` of the reference's
+loss, with the reference's weights carried over by ``convert``: loss
+within 1e-5 relative, each leaf within 1e-5 of its largest magnitude
+(measured on the four others: 3.3e-7 and 2.2e-6 at most). The ``unbind``
+split and remat must not change a gradient bit."""
 
 import jax
 import jax.numpy as jnp
@@ -139,7 +140,8 @@ def test_ssd_fn_skips_inputs_without_grad_and_state_is_forward_only():
 
 
 # ------------------------------------------------------- the model's grads
-ARCHS = ["zamba2-2.7b", "mamba2-1.3b", "yi-6b", "gemma3-1b"]
+ARCHS = ["zamba2-2.7b", "mamba2-1.3b", "yi-6b", "gemma3-1b",
+         "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"]
 
 
 def _pair(arch, remat=False):
@@ -179,7 +181,8 @@ def test_loss_and_gradients_match_the_reference(arch):
         assert float(np.abs(g.numpy() - r).max()) <= LEAF_TOL * scale
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "yi-6b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "yi-6b",
+                                  "qwen3-moe-30b-a3b"])
 def test_remat_gives_the_same_gradients(arch, monkeypatch):
     _, rparams, cfg, batch = _pair(arch)
     loss, grads = _port_grads(cfg, rparams, batch)
