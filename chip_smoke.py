@@ -112,7 +112,29 @@ each raising on failure:
      whisper smoke configs in f32: tokens card = CPU, and one
      ``build_train`` loss of qwen3-moe and of whisper card against CPU
      (1e-5); (d) K5 timed at the two new shapes (phase 8 holds it against
-     its plain version there) beside its plain version, SDPA and its bound.
+     its plain version there) beside its plain version, SDPA and its bound;
+     every decode step of phases 9 and 14 makes no host sync (PyTorch's
+     sync debug mode);
+ 15. the five architectures no card run had reached, each model freed
+     before the next is built: (a) deepseek-coder-33b at full width with
+     bf16 parameters (66.69 GB) through ``Engine``, 8 prompts of 512 and 16
+     new tokens (62 K5 launches); (b) chameleon-34b (the vlm family, bf16)
+     through the serve launcher's own entry point (``launch.serve.main``
+     with ``--dtype bfloat16``: 48 K5 launches), then mistral-large-123b
+     refused by the launcher before it allocates anything (245.2 GB even
+     in bf16); (c) gemma3-1b (f32 parameters, bf16 compute) on prompts of
+     2048, past its 512-token window (22 windowed and 4 global K5
+     launches), its windowed decode held against a prefill of the same
+     tokens after decode steps 1, 8 and 16; (d) mamba2-1.3b (48 K6
+     launches, the plain recurrent decode), the SSM states its prefill
+     hands to decode against the plain chunked form's. For (a), (c) and
+     (d): two generates equal, no host sync in a decode step, and the
+     prefill against the same prefill through the plain versions (argmax
+     equal on every row but at most one knife-edge row); peak memory.
+     (e) all five smoke configs in f32: tokens and three train steps'
+     losses card against CPU. Then K5 at the new shapes (phase 8 holds
+     them against the plain version) beside SDPA, and K6 at mamba2's. The
+     ``kernels`` line counts phase 15's launches in K5's and K6's.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.
@@ -120,7 +142,9 @@ non-zero before it.
     python3 chip_smoke.py --compare-kernels DIR
 
 times K1 (one evaluator call's APSP), K2, K3 and K4 at phase 6's shapes
-and K5 and K6 at the serving shapes, from another checkout ``DIR`` (for
+and K5 and K6 at the serving shapes, and the decode ms per step of
+zamba2-2.7b, qwen3-moe-30b-a3b (bf16) and whisper-base at full width,
+from another checkout ``DIR`` (for
 example the parent commit, unpacked with ``git archive``) beside this
 one's, each in a fresh process, in the order DIR, this, this, DIR: device
 time over 10 back-to-back calls, one call between two events, and the
@@ -357,7 +381,15 @@ ATTN_CASES = (
     (1, 4, 4, 200, 32, False, None, "bfloat16"),    # bidirectional
     (8, 32, 4, 512, 128, True, None, "bfloat16"),   # qwen3-moe prefill
     (8, 8, 8, 1500, 64, False, None, "bfloat16"),   # whisper-base encoder
+    (8, 56, 8, 512, 128, True, None, "bfloat16"),   # deepseek-coder prefill
+    (8, 64, 8, 512, 128, True, None, "bfloat16"),   # chameleon prefill
+    (8, 4, 1, 2048, 256, True, 512, "bfloat16"),    # gemma3 local, 8 x 2048
+    (8, 4, 1, 2048, 256, True, None, "bfloat16"),   # gemma3 global
 )
+#: The K5 shapes phase 14 (qwen3-moe, whisper) and phase 15 (deepseek,
+#: chameleon, gemma3's local and global layers) time.
+ATTN_PHASE14 = ATTN_CASES[7:9]
+ATTN_PHASE15 = ATTN_CASES[9:13]
 #: (B, S, H, P, N, chunk): the serving path's shape first.
 SSD_CASES = (
     (8, 512, 80, 64, 64, 64),   # zamba2 prefill, one mamba layer
@@ -365,6 +397,7 @@ SSD_CASES = (
     (2, 40, 8, 64, 64, 40),     # S < 64: one short chunk
     (2, 128, 7, 64, 64, 64),    # H = 7: a last head group of one head
     (2, 200, 8, 64, 16, 64),    # N = 16
+    (8, 512, 64, 64, 128, 64),  # mamba2-1.3b prefill: K6's largest N
 )
 
 
@@ -517,6 +550,12 @@ def serve_full_width(torch, ops, ref, dev) -> dict:
           f"(tolerance {PREFILL_REL_TOL}); next-token argmax agrees on "
           f"{int(same.sum())}/{batch} rows; plain top-2 margins "
           f"{[round(m, 4) for m in margin.tolist()]}")
+    _, cache = model.prefill(tokens, prompt_len + new)
+    check_decode_syncs(torch, model, cache,
+                       torch.as_tensor(out[:, :1].astype(np.int64),
+                                       device=dev),
+                       f"zamba2-2.7b ({n_sites} attention sites)")
+    del cache
 
     smoke = get_config("zamba2-2.7b", smoke=True).scaled(
         compute_dtype=torch.float32)
@@ -539,6 +578,20 @@ def _to_cpu(tree):
             for k, v in tree.items()}
 
 
+def ssd_work(case) -> tuple[int, int]:
+    """(bytes, f32 multiply-adds x 2) of one K6 call at ``case``: each
+    input read once and the output and final state written once; the
+    intra-chunk products over the causal (i, j) pairs and the chunk-state
+    products."""
+    b, s, h, p, n, chunk = case
+    tri = chunk * (chunk + 1) // 2              # causal (i, j) pairs per chunk
+    per_chunk = 2 * tri * (n + p) + 4 * chunk * n * p
+    n_ops = b * h * (s // chunk) * per_chunk
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + 2 * h
+                   + b * h * n * p)
+    return n_bytes, n_ops
+
+
 def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
     """Phase 10: K5 and K6 at phase 9's shapes: kernel, plain version and
     bound; PyTorch's own attention call for K5 as a yardstick."""
@@ -550,7 +603,7 @@ def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
     plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-    pairs = b * h * s * (s + 1) // 2           # (q, k) pairs under the mask
+    pairs = attn_pairs(b, h, s, True, None)
     n_bytes = 2 * (2 * b * h * s * d + 2 * b * kh * s * d)
     rows.append(("flash_attention", ms, plain_ms, lib_ms,
                  *bound(n_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)))
@@ -566,11 +619,7 @@ def time_llm_kernels(torch, ops, ref, dev, launches, errs) -> list[dict]:
     ms = time_ms(lambda: ops.ssd(*args, chunk=chunk, return_state=True))
     plain_ms = time_ms(lambda: ref.ssd_padded_ref(*args, chunk=chunk,
                                                   return_state=True))
-    tri = chunk * (chunk + 1) // 2              # causal (i, j) pairs per chunk
-    per_chunk = 2 * tri * (n + p) + 4 * chunk * n * p
-    n_ops = b * h * (s // chunk) * per_chunk
-    n_bytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + 2 * h
-                   + b * h * n * p)
+    n_bytes, n_ops = ssd_work(case)
     # The kernel runs each f32 product as three TF32 products (3xTF32): its
     # bound counts them at the TF32 tensor-core peak; the FP32 CUDA-core
     # bound of the same products is printed beside it.
@@ -835,7 +884,7 @@ def kernel_times(src: Path) -> dict:
     between two events (``time_ms_per_call``), the profiler's device time
     per call (all of the call's kernels) and its kernels per call; then two
     runs of the main path (wall seconds, and the second run's accounting,
-    front and PHV)."""
+    front and PHV); then the decode ms per step of ``DECODE_TIMED``."""
     sys.path.insert(0, str(src))
     import torch
 
@@ -863,7 +912,54 @@ def kernel_times(src: Path) -> dict:
     out["main_path"] = {"first_s": walls[0][2], "second_s": walls[1][2],
                         "evals": res.n_evals, "calls": res.n_calls,
                         "front": len(res.designs), "phv": res.phv()}
+    out["decode_ms"] = {arch: decode_ms(torch, arch, dtype)
+                        for arch, dtype in DECODE_TIMED}
     return out
+
+
+#: The decode steps ``--compare-kernels`` times: full width, batch 8,
+#: parameters in the dtype named.
+DECODE_TIMED = (("zamba2-2.7b", "float32"),
+                ("qwen3-moe-30b-a3b", "bfloat16"),
+                ("whisper-base", "float32"))
+
+
+def decode_ms(torch, arch, dtype, steps=15, reps=3) -> float:
+    """Host-clock ms per greedy ``decode_step`` of ``arch`` at full width
+    (seeded weights in ``dtype``), batch 8, after a prefill of 512 prompt
+    tokens (whisper: 1500 stub frames and 8 tokens): the median over
+    ``reps`` runs of ``steps`` steps, each run ending in a sync."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch).scaled(dtype=getattr(torch, dtype))
+    model = build(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    n = WHISPER_PROMPT if cfg.family == "encdec" else 512
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab, (8, n)), device=dev)
+    max_len = n + steps * reps + 1
+    if cfg.family == "encdec":
+        frames = torch.as_tensor(rng.standard_normal(
+            (8, WHISPER_FRAMES, cfg.d_model)).astype(np.float32), device=dev)
+        logits, cache = model.prefill(frames, tokens, max_len)
+    else:
+        logits, cache = model.prefill(tokens, max_len)
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = model.decode_step(cache, tok)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3 / steps)
+    del model, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return statistics.median(runs)
 
 
 def compare_kernels(other: Path) -> int:
@@ -1965,8 +2061,8 @@ MOE_PEAK_GB = 70.0
 #: At most this many prefill rows may part from the plain versions'
 #: argmax, and only at a knife-edge: their plain top-2 margin under the
 #: measured max |logit diff| (a bf16 K5 can flip a near-tie in a router
-#: and so a token's experts).
-MOE_KNIFE_ROWS = 1
+#: and so a token's experts; phase 15 holds its models so too).
+KNIFE_ROWS = 1
 #: Phase 14 (b): whisper-base at full width: 8 windows of 1500 frames
 #: (30 s of audio), prompts of 8 tokens, 32 new tokens. Its encoder states
 #: through K5 against the plain version: max |diff| as a share of the
@@ -1987,23 +2083,14 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-def hold_prefill(torch, ops, ref, model, tokens, max_len, label) -> dict:
-    """``model``'s prefill through the kernels against the same prefill
-    with ``ops.attention`` pointed at its plain version: logits within
-    PREFILL_REL_TOL of the scale; the argmax equal on every row but at most
-    MOE_KNIFE_ROWS knife-edge rows (plain top-2 margin under the max
-    |logit diff|), each printed."""
-    logits, _ = model.prefill(tokens, max_len)
-    kernel = ops.attention
-    try:
-        ops.attention = ref.attention_ref
-        plain, _ = model.prefill(tokens, max_len)
-    finally:
-        ops.attention = kernel
-    _sync(torch, tokens.device)
-    b = tokens.shape[0]
-    lg = logits.float().reshape(b, -1)
-    pl = plain.float().reshape(b, -1)
+def hold_logits(torch, got, want, label) -> dict:
+    """Last-position logits ``got`` against ``want`` (each (B, 1, V)): max
+    |diff| within PREFILL_REL_TOL of the scale; the argmax equal on every
+    row but at most KNIFE_ROWS knife-edge rows (``want``'s top-2 margin
+    under the max |diff|), each printed."""
+    b = got.shape[0]
+    lg = got.float().reshape(b, -1)
+    pl = want.float().reshape(b, -1)
     check(bool(torch.isfinite(lg).all()), f"{label}: non-finite logits")
     scale = float(pl.abs().max())
     diff = float((lg - pl).abs().max())
@@ -2014,24 +2101,54 @@ def hold_prefill(torch, ops, ref, model, tokens, max_len, label) -> dict:
     knife = [i for i in parted if float(margin[i]) < diff]
     check(diff <= PREFILL_REL_TOL * scale,
           f"{label}: max |logit diff| {diff} > {PREFILL_REL_TOL} x {scale}")
-    check(knife == parted and len(knife) <= MOE_KNIFE_ROWS,
-          f"{label}: next-token argmax differs on rows {parted} (plain top-2 "
+    check(knife == parted and len(knife) <= KNIFE_ROWS,
+          f"{label}: next-token argmax differs on rows {parted} (top-2 "
           f"margins {[float(margin[i]) for i in parted]}, max |diff| {diff};"
-          f" at most {MOE_KNIFE_ROWS} knife-edge row may part)")
+          f" at most {KNIFE_ROWS} knife-edge row may part)")
     for i in knife:
-        print(f"{label}: row {i} parts at a knife-edge: plain top-2 margin "
+        print(f"{label}: row {i} parts at a knife-edge: top-2 margin "
               f"{float(margin[i]):.4g} < max |logit diff| {diff:.4g}")
-    print(f"{label} against the plain versions on the card: max |logit "
-          f"diff| {diff:.4g} = {diff / scale:.4g} of the logits' scale "
-          f"{scale:.4g} (tolerance {PREFILL_REL_TOL}); next-token argmax "
-          f"agrees on {int(same.sum())}/{b} rows; plain top-2 margins "
-          f"{[round(m, 4) for m in margin.tolist()]}")
+    print(f"{label}: max |logit diff| {diff:.4g} = {diff / scale:.4g} of "
+          f"the logits' scale {scale:.4g} (tolerance {PREFILL_REL_TOL}); "
+          f"next-token argmax agrees on {int(same.sum())}/{b} rows; top-2 "
+          f"margins {[round(m, 4) for m in margin.tolist()]}")
     return {"diff": diff, "scale": scale, "knife": knife}
 
 
-def host_syncs(torch, fn) -> int:
+def hold_prefill(torch, ops, ref, model, tokens, max_len, label,
+                 plain=None, keep_caches=False) -> dict:
+    """``model``'s prefill through the kernels against the same prefill
+    with the wrappers in ``plain`` (``ops`` attribute -> plain version;
+    by default K5's ``attention`` -> ``ref.attention_ref``) pointed at
+    their plain versions, held by :func:`hold_logits`. With
+    ``keep_caches`` the two prefills' caches come back too."""
+    plain = plain or {"attention": ref.attention_ref}
+    logits, cache = model.prefill(tokens, max_len)
+    if not keep_caches:
+        del cache
+    kernels = {name: getattr(ops, name) for name in plain}
+    try:
+        for name, fn in plain.items():
+            setattr(ops, name, fn)
+        want, plain_cache = model.prefill(tokens, max_len)
+    finally:
+        for name, fn in kernels.items():
+            setattr(ops, name, fn)
+    _sync(torch, tokens.device)
+    out = hold_logits(torch, logits, want,
+                      f"{label} against the plain versions on the card")
+    if keep_caches:
+        out.update(cache=cache, plain_cache=plain_cache)
+    return out
+
+
+def host_syncs(torch, fn) -> list[str]:
     """The host-device synchronisations one call of ``fn`` makes, as
-    PyTorch's sync debug mode reports them (one warning each)."""
+    PyTorch's sync debug mode reports them: one "file:line" of the Python
+    line that made each. Only its "called a synchronizing CUDA operation"
+    warnings count: the first switch to the mode in a process also warns
+    that the mode "does not yet detect all synchronizing operations",
+    which is no sync."""
     import warnings
 
     torch.cuda.synchronize()
@@ -2042,7 +2159,19 @@ def host_syncs(torch, fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def check_decode_syncs(torch, model, cache, step, label) -> None:
+    """One ``decode_step`` of ``model`` on ``cache`` (which it advances)
+    must make no host sync; the count is printed, and where one is made
+    its line."""
+    sites = host_syncs(torch, lambda: model.decode_step(cache, step))
+    print(f"{label}: host syncs in one decode step: {len(sites)}"
+          + (f" at {sorted(set(sites))}" if sites else ""))
+    check(not sites, f"{label}: {len(sites)} host syncs in one decode step "
+          f"({sorted(set(sites))})")
 
 
 def moe_dropped_at_layer0(torch, model, tokens) -> tuple[int, int, int]:
@@ -2143,9 +2272,8 @@ def serve_moe_full_width(torch, ops, ref, dev, batch=MOE_BATCH,
     if dev.type == "cuda":
         _, cache = model.prefill(tokens, prompt_len + new)
         step = torch.as_tensor(out[:, :1].astype(np.int64), device=dev)
-        print(f"host syncs in one decode step: "
-              f"{host_syncs(torch, lambda: model.decode_step(cache, step))}"
-              f" ({cfg.n_layers} layers)")
+        check_decode_syncs(torch, model, cache, step,
+                           f"{MOE_ARCH} ({cfg.n_layers} layers)")
         del cache
     hold_prefill(torch, ops, ref, model, tokens, prompt_len + new,
                  f"{MOE_ARCH} prefill")
@@ -2218,9 +2346,8 @@ def serve_whisper_full_width(torch, ops, ref, dev, batch=WHISPER_BATCH,
     if dev.type == "cuda":
         _, cache = model.prefill(frames, prompts, prompt_len + new)
         step = torch.as_tensor(out[:, :1].astype(np.int64), device=dev)
-        print(f"host syncs in one whisper decode step: "
-              f"{host_syncs(torch, lambda: model.decode_step(cache, step))}"
-              f" ({cfg.n_layers} decoder layers)")
+        check_decode_syncs(torch, model, cache, step,
+                           f"whisper-base ({cfg.n_layers} decoder layers)")
         del cache
 
     enc = model.encode(frames)
@@ -2293,27 +2420,350 @@ def encdec_moe_smoke_card_vs_cpu(torch, dev) -> None:
               f"{ENCDEC_MOE_LOSS_RTOL})")
 
 
-def time_k5_new_shapes(torch, ops, ref, dev) -> None:
-    """K5 at qwen3-moe's prefill shape and whisper's encoder shape: the
-    kernel, its plain version, PyTorch's own attention call and the
+def attn_pairs(b, h, s, causal, window) -> int:
+    """(q, k) pairs under the mask of one (B, H, S, S) attention."""
+    if not causal:
+        return b * h * s * s
+    w = window or s
+    # Row i sees min(i + 1, w) keys.
+    return b * h * (w * (w + 1) // 2 + (s - w) * w)
+
+
+def time_k5_shapes(torch, ops, ref, dev, cases) -> None:
+    """K5 at ``cases``: the kernel, its plain version, PyTorch's own
+    attention call (with a boolean mask where there is a window) and the
     bound, each printed."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for case in ATTN_CASES[-2:]:
-        b, h, kh, s, d, causal, _, _ = case
+    for case in cases:
+        b, h, kh, s, d, causal, window, _ = case
         q, k, v = attn_inputs(torch, case, dev)
-        ms = time_ms(lambda: ops.attention(q, k, v, causal=causal))
-        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal),
-                           reps=5)
-        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal,
-                                      enable_gqa=True))
-        pairs = b * h * s * (s + 1) // 2 if causal else b * h * s * s
+        ms = time_ms(lambda: ops.attention(q, k, v, causal=causal,
+                                           window=window))
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
+                                                     window=window), reps=5)
+        if window is None:
+            lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                          enable_gqa=True))
+        else:
+            pos = torch.arange(s, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                          enable_gqa=True))
+        pairs = attn_pairs(b, h, s, causal, window)
         n_bytes = 2 * (2 * b * h * s * d + 2 * b * kh * s * d)
         bound_ms, bound_by = bound(n_bytes, 4 * d * pairs, PEAK_BF16_FLOPS)
-        print(f"K5 B={b} H={h} KH={kh} S={s} D={d} causal={causal} bf16: "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.6f} ms by {bound_by}: {n_bytes / 1e6:.1f} MB, "
-              f"{4 * d * pairs / 1e9:.2f} GFLOP)")
+        print(f"K5 B={b} H={h} KH={kh} S={s} D={d} causal={causal} "
+              f"window={window} bf16: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention{' with a boolean mask' if window else ''} "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}: "
+              f"{n_bytes / 1e6:.1f} MB, {4 * d * pairs / 1e9:.2f} GFLOP)")
+
+
+# ------------------------------------------- five more architectures (15)
+#: Phase 15: the architectures no card run had reached, at full width with
+#: seeded random weights and seeded prompts of SERVE_BATCH rows. (a) dense,
+#: bf16 parameters (66.69 GB; f32 would be 133.38 GB) through ``Engine``;
+#: (b) the vlm family, bf16, through the serve launcher's entry point, and
+#: the one config no card holds, refused; (c) gemma3's 5:1 local/global
+#: attention with prompts past its 512-token window, f32 parameters and
+#: bf16 compute as the config has them; (d) the pure-SSM family, f32
+#: parameters.
+DENSE_ARCH = "deepseek-coder-33b"
+VLM_ARCH = "chameleon-34b"
+TOO_BIG_ARCH = "mistral-large-123b"
+WINDOW_ARCH = "gemma3-1b"
+SSM_ARCH = "mamba2-1.3b"
+FIVE_ARCHS = (WINDOW_ARCH, SSM_ARCH, VLM_ARCH, DENSE_ARCH, TOO_BIG_ARCH)
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 16
+WINDOW_PROMPT = 2048
+#: Peak device memory, GB: one copy of the weights, the KV cache and one
+#: prefill's activations (66.69 + 1.09 GB; 68.59 + 0.84 GB).
+DENSE_PEAK_GB = 72.0
+VLM_PEAK_GB = 75.0
+#: gemma3's windowed decode is held against a prefill of the prompt and
+#: the tokens generated so far, after these decode steps.
+WINDOW_CHECK_STEPS = (1, 8, 16)
+#: mamba2's prefill hands decode the final SSM state of every layer; K6's
+#: against the plain chunked form's, max |err| as a share of the largest
+#: |state|: layer 0 (the same inputs, so the kernel's arithmetic alone:
+#: 3xTF32 against f32) and every layer (where the bf16 roundings of each
+#: layer's output carry the difference forward, as in the logits).
+SSM_STATE_L0_RTOL = 1e-4
+SSM_STATE_RTOL = PREFILL_REL_TOL
+#: (e): smoke-size train steps card against CPU.
+SMOKE_TRAIN_STEPS = 3
+
+
+def release(torch) -> None:
+    """Free what the last model left (its tensors are unreferenced by
+    now), empty the allocator's cache and restart the peak count."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def serve_held(torch, ops, ref, dev, cfg, prompt_len, want, plain,
+               peak_gb=None, keep_caches=False) -> dict:
+    """``cfg`` at full width served through ``Engine``: SERVE_BATCH seeded
+    prompts of ``prompt_len``, SERVE_NEW new tokens; K5/K6 launches
+    counted over one generate (``want``), two generates equal, no host
+    sync in a decode step, the prefill held against the model with the
+    wrappers in ``plain`` pointed at their plain versions, and the peak
+    memory (under ``peak_gb`` where given). Returns the model, the prompt
+    tokens, the launches and :func:`hold_prefill`'s result."""
+    import numpy as np
+
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    name = cfg.name
+    t0 = time.perf_counter()
+    model = build(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in model.buffers())
+    print(f"{name}: {cfg.family}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters in "
+          f"{str(cfg.dtype).split('.')[-1]} (the config's analytic count "
+          f"{cfg.param_count()}), compute "
+          f"{str(cfg.compute_dtype).split('.')[-1]}; built in {build_s:.1f} s")
+    max_len = prompt_len + SERVE_NEW
+    engine = Engine(model, ServeConfig(max_new_tokens=SERVE_NEW,
+                                       max_len=max_len))
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(SERVE_BATCH, prompt_len)).astype(np.int32)
+    ops.reset_launches()
+    out = engine.generate(prompts)
+    _sync(torch, dev)
+    launches = {k: n for k, n in ops.launches().items() if k in LLM_KERNELS}
+    cold = dict(engine.stats)
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    check(out.shape == (SERVE_BATCH, SERVE_NEW) and out.dtype == np.int32,
+          f"{name}: generate returned {out.shape} {out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"{name}: token out of range")
+    t0 = time.perf_counter()
+    out2 = engine.generate(prompts)
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    check(np.array_equal(out, out2), f"{name}: two generates differ")
+    prefill_ms = st["prefill_s"] * 1e3
+    decode_ms = st["decode_s"] * 1e3 / st["decode_steps"]
+    print(f"{name} generate (warm): wall {wall * 1e3:.1f} ms, prefill "
+          f"{prefill_ms:.1f} ms, decode {decode_ms:.2f} ms per step "
+          f"({st['decode_steps']} steps of batch {SERVE_BATCH}), "
+          f"{out.size / wall:.1f} generated tokens/s; first (cold) generate:"
+          f" prefill {cold['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{cold['decode_s'] * 1e3:.1f} ms; launches in one generate "
+          f"{json.dumps(launches)}")
+    print(f"{name} sample tokens: {out[0].tolist()}")
+    tokens = torch.as_tensor(prompts.astype(np.int64), device=dev)
+    _, cache = model.prefill(tokens, max_len)
+    check_decode_syncs(torch, model, cache,
+                       torch.as_tensor(out[:, :1].astype(np.int64),
+                                       device=dev), name)
+    del cache
+    held = hold_prefill(torch, ops, ref, model, tokens, max_len,
+                        f"{name} prefill", plain=plain,
+                        keep_caches=keep_caches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{name}: peak memory {peak:.2f} GB (build, two generates and the "
+          f"two prefills held included)")
+    if peak_gb is not None:
+        check(peak < peak_gb, f"{name}: peak memory {peak:.2f} GB >= "
+              f"{peak_gb} GB")
+    return {"model": model, "tokens": tokens, "launches": launches,
+            "held": held}
+
+
+def serve_dense_full_width(torch, ops, ref, dev) -> dict:
+    """Phase 15 (a): deepseek-coder-33b with bf16 parameters: one K5
+    launch per layer in a generate, none in decode."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DENSE_ARCH).scaled(dtype=torch.bfloat16)
+    r = serve_held(torch, ops, ref, dev, cfg, SERVE_PROMPT,
+                   {"flash_attention": cfg.n_layers, "ssd": 0},
+                   {"attention": ref.attention_ref}, peak_gb=DENSE_PEAK_GB)
+    return r["launches"]
+
+
+def serve_vlm_by_launcher(torch, ops, dev) -> dict:
+    """Phase 15 (b): chameleon-34b through the serve launcher's own entry
+    point with ``--dtype bfloat16``; then mistral-large-123b, which no one
+    card holds even in bf16, refused before anything is allocated."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+
+    cfg = get_config(VLM_ARCH)
+    ops.reset_launches()
+    argv = ["--arch", VLM_ARCH, "--dtype", "bfloat16", "--batch",
+            str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT), "--new",
+            str(SERVE_NEW)]
+    check(launch_serve.main(argv) == 0, f"serve launcher {argv} failed")
+    _sync(torch, dev)
+    launches = {k: n for k, n in ops.launches().items() if k in LLM_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == {"flash_attention": cfg.n_layers, "ssd": 0},
+          f"{VLM_ARCH}: launches {launches}, expected K5 {cfg.n_layers}")
+    check(peak < VLM_PEAK_GB, f"{VLM_ARCH}: peak memory {peak:.2f} GB >= "
+          f"{VLM_PEAK_GB} GB")
+    print(f"launcher {' '.join(argv)}: exit 0, launches "
+          f"{json.dumps(launches)}, peak memory {peak:.2f} GB")
+    release(torch)
+    before = torch.cuda.memory_allocated()
+    argv = ["--arch", TOO_BIG_ARCH, "--dtype", "bfloat16"]
+    try:
+        launch_serve.main(argv)
+        refused = None
+    except SystemExit as exc:
+        refused = str(exc)
+    check(refused is not None and "245.2 GB" in refused,
+          f"launcher {argv}: not refused naming 245.2 GB ({refused})")
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"launcher {argv}: allocated {after - before} "
+          f"bytes before refusing")
+    print(f"launcher {' '.join(argv)}: refused, {after - before} bytes "
+          f"allocated: {refused}")
+    return launches
+
+
+def serve_window_full_width(torch, ops, ref, dev) -> dict:
+    """Phase 15 (c): gemma3-1b at 8 x 2048 (22 layers with a 512-token
+    window, 4 global): the prefill held against the plain attention, and
+    the windowed decode held against prefill after decode steps 1, 8 and
+    16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import window_schedule
+
+    cfg = get_config(WINDOW_ARCH)
+    sched = window_schedule(cfg)
+    local = sum(1 for w in sched if w)
+    print(f"{WINDOW_ARCH}: window {cfg.sliding_window} on {local} layers, "
+          f"global on {len(sched) - local} "
+          f"({[i for i, w in enumerate(sched) if not w]}); prompts of "
+          f"{WINDOW_PROMPT}")
+    r = serve_held(torch, ops, ref, dev, cfg, WINDOW_PROMPT,
+                   {"flash_attention": cfg.n_layers, "ssd": 0},
+                   {"attention": ref.attention_ref})
+    model, tokens = r["model"], r["tokens"]
+    max_len = WINDOW_PROMPT + max(WINDOW_CHECK_STEPS) + 1
+    logits, cache = model.prefill(tokens, max_len)
+    fed = []
+    for step in range(1, max(WINDOW_CHECK_STEPS) + 1):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        fed.append(tok)
+        logits, cache = model.decode_step(cache, tok)
+        if step in WINDOW_CHECK_STEPS:
+            seq = torch.cat([tokens, *fed], dim=1)
+            want, _ = model.prefill(seq, seq.shape[1])
+            _sync(torch, dev)
+            hold_logits(torch, logits, want,
+                        f"{WINDOW_ARCH} decode step {step} (position "
+                        f"{seq.shape[1] - 1}, keys {seq.shape[1] - cfg.sliding_window}"
+                        f"-{seq.shape[1] - 1} in the window) against the "
+                        f"prefill of the same {seq.shape[1]} tokens")
+    return r["launches"]
+
+
+def serve_ssm_full_width(torch, ops, ref, dev) -> dict:
+    """Phase 15 (d): mamba2-1.3b: one K6 launch per layer in a generate,
+    the plain recurrent decode; the prefill and the SSM states it hands
+    to decode held against the plain chunked form."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SSM_ARCH)
+    r = serve_held(torch, ops, ref, dev, cfg, SERVE_PROMPT,
+                   {"flash_attention": 0, "ssd": cfg.n_layers},
+                   {"ssd": ref.ssd_chunked_ref}, keep_caches=True)
+    got, want = r["held"]["cache"]["ssm"], r["held"]["plain_cache"]["ssm"]
+    check(bool(torch.isfinite(got).all()), f"{SSM_ARCH}: non-finite states")
+    err = (got - want).abs()
+    for label, e, w, tol in (
+            ("layer 0", err[0], want[0], SSM_STATE_L0_RTOL),
+            (f"all {cfg.n_layers} layers", err, want, SSM_STATE_RTOL)):
+        e, scale = float(e.max()), float(w.abs().max())
+        check(e <= tol * scale, f"{SSM_ARCH} SSM state, {label}: max |err| "
+              f"{e} > {tol} x {scale}")
+        print(f"{SSM_ARCH} SSM state handed to decode, {label}: max |err| "
+              f"{e:.4g} = {e / scale:.4g} of its scale {scale:.4g} "
+              f"(tolerance {tol})")
+    return r["launches"]
+
+
+def five_smoke_card_vs_cpu(torch, ops, dev) -> None:
+    """Phase 15 (e): the five architectures' smoke configs in f32: tokens
+    card = CPU (prompts of 70: past the gemma3 smoke's window of 8, a
+    padded SSD tail), and SMOKE_TRAIN_STEPS train steps' losses card
+    against CPU from one initial state."""
+    import numpy as np
+
+    from repro_torch.ckpt.checkpoint import tree_leaves, tree_unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.models import build, build_train
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train import OptConfig, make_train_fns
+
+    rng = np.random.default_rng(2)
+    for arch in FIVE_ARCHS:
+        cfg = get_config(arch, smoke=True).scaled(compute_dtype=torch.float32)
+        on_card = build(cfg, seed=1, device=dev)
+        on_cpu = build(cfg, _to_cpu(on_card.params), device="cpu")
+        prompts = rng.integers(1, cfg.vocab, (4, 70)).astype(np.int32)
+        scfg = ServeConfig(max_new_tokens=8, max_len=96)
+        ops.reset_launches()
+        a = Engine(on_card, scfg).generate(prompts)
+        launched = {k: ops.launches()[k] for k in LLM_KERNELS}
+        b = Engine(on_cpu, scfg).generate(prompts)
+        check(np.array_equal(a, b), f"smoke {arch}: card and CPU tokens "
+              f"differ")
+        check(sum(launched.values()) == cfg.n_layers,
+              f"smoke {arch}: launches {launched}")
+
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                      global_batch=4))
+        opt = OptConfig(lr=1e-2, warmup_steps=2)
+        state0 = make_train_fns(build_train(cfg, device="cpu"), Policy(),
+                                opt)[0](0)
+        losses = {}
+        for device in ("cpu", dev):
+            step = make_train_fns(build_train(cfg, device=device), Policy(),
+                                  opt)[1]
+            state = tree_unflatten(state0, [
+                t.detach().to(device, copy=True) for t in tree_leaves(state0)])
+            for p in tree_leaves(state["params"]):
+                p.requires_grad_(True)
+            losses[str(device)] = [step(state, data.batch(i))[1]["loss"].item()
+                                   for i in range(SMOKE_TRAIN_STEPS)]
+        gap = max(abs(c - h) / abs(h) for c, h in zip(losses[str(dev)],
+                                                       losses["cpu"]))
+        check(gap <= TRAIN_SMOKE_RTOL, f"smoke {arch}: train losses card "
+              f"{losses[str(dev)]} against CPU {losses['cpu']}: {gap} > "
+              f"{TRAIN_SMOKE_RTOL}")
+        print(f"smoke {arch} (f32): card and CPU generate identical tokens "
+              f"(card launches {json.dumps(launched)}); {SMOKE_TRAIN_STEPS} "
+              f"train steps' losses {[round(x, 5) for x in losses['cpu']]}, "
+              f"card against CPU within {gap:.3g} (tolerance "
+              f"{TRAIN_SMOKE_RTOL})")
+
+
+def time_k6_shape(torch, ops, ref, dev, case) -> None:
+    """K6 at ``case``: the kernel, its plain version (no PyTorch call
+    computes it) and the bound, printed."""
+    b, s, h, p, n, chunk = case
+    args = ssd_inputs(torch, case, dev)
+    ms = time_ms(lambda: ops.ssd(*args, chunk=chunk, return_state=True))
+    plain_ms = time_ms(lambda: ref.ssd_padded_ref(*args, chunk=chunk,
+                                                  return_state=True), reps=5)
+    n_bytes, n_ops = ssd_work(case)
+    bound_ms, bound_by = bound(n_bytes, 3 * n_ops, PEAK_TF32_FLOPS)
+    print(f"K6 B={b} S={s} H={h} P={p} N={n} chunk={chunk}: {ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}:"
+          f" {n_bytes / 1e6:.1f} MB, {3 * n_ops / 1e9:.2f} GFLOP as "
+          f"3xTF32)")
 
 
 def main(argv: list[str]) -> int:
@@ -2700,7 +3150,28 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     serve_whisper_full_width(torch, ops, ref, dev)
     encdec_moe_smoke_card_vs_cpu(torch, dev)
-    time_k5_new_shapes(torch, ops, ref, dev)
+    time_k5_shapes(torch, ops, ref, dev, ATTN_PHASE14)
+
+    # ------------------------------------------------------------ phase 15
+    phase("15 five more architectures: deepseek-coder-33b, chameleon-34b, "
+          "gemma3-1b, mamba2-1.3b at full width; mistral-large-123b refused")
+    print(f"card: {card}")
+    release(torch)
+    launched15 = [serve_dense_full_width(torch, ops, ref, dev)]
+    release(torch)
+    launched15.append(serve_vlm_by_launcher(torch, ops, dev))
+    release(torch)
+    launched15.append(serve_window_full_width(torch, ops, ref, dev))
+    release(torch)
+    launched15.append(serve_ssm_full_width(torch, ops, ref, dev))
+    release(torch)
+    five_smoke_card_vs_cpu(torch, ops, dev)
+    time_k5_shapes(torch, ops, ref, dev, ATTN_PHASE15)
+    time_k6_shape(torch, ops, ref, dev, SSD_CASES[-1])
+    for row in kernels:
+        row["launches"] += sum(n.get(row["name"], 0) for n in launched15)
+    print(f"phase 15 launches on its full-width paths: "
+          f"{json.dumps(launched15)}, added to the kernels line's counts")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,8 @@
 """chameleon-34b [vlm] — early-fusion VLM: 48L d_model=8192 64H (GQA kv=8)
 d_ff=22016 over a fused text+VQ-image token vocab of 65536. The VQ-VAE image
-tokenizer is a STUB: input_specs() provides fused token ids (task rules).
+tokenizer is a STUB (task rules): the port is fed token ids in the fused
+vocab, (B, S) integers in [0, 65536) as ``Model.prefill`` and
+``Engine.generate`` take any decoder's prompts; no image is tokenized.
 [arXiv:2405.09818; unverified]"""
 
 from ..models.common import ModelConfig

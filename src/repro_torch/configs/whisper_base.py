@@ -1,6 +1,8 @@
 """whisper-base [audio] — enc-dec, 6L encoder + 6L decoder, d_model=512,
-8H (kv=8), d_ff=2048, vocab=51865. The conv/mel frontend is a STUB:
-input_specs() provides precomputed frame embeddings (task rules).
+8H (kv=8), d_ff=2048, vocab=51865. The conv/mel frontend is a STUB (task
+rules): the port is fed stub frame embeddings, a (B, S_enc, d_model) float
+tensor standing for the frontend's output (seeded normal draws in the
+tests and chip_smoke.py), to ``EncDecModel.encode`` / ``prefill``.
 [arXiv:2212.04356; unverified]
 
 Decoder context for train/prefill shapes is capped at 448 tokens (whisper's

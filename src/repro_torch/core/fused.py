@@ -153,8 +153,10 @@ def fused_features(c: dict, k: int, base_perm, base_lm, base_scalars,
     # the removed edge -1, of the added edge +1); small integers, exact.
     didx = torch.stack([c["iu0_ext"][er], c["iu1_ext"][er],
                         c["iu0_ext"][ea], c["iu1_ext"][ea]], dim=1)
-    dupd = torch.tensor([-1.0, -1.0, 1.0, 1.0], dtype=deg0.dtype,
-                        device=deg0.device).expand(bsz, 4)
+    # [-1, -1, 1, 1] made on the device: a list copied from the host would
+    # be a blocking copy on every call.
+    dupd = (torch.arange(4, device=deg0.device) // 2 * 2 - 1).to(
+        deg0.dtype).expand(bsz, 4)
     deg = (deg0.expand(bsz, n + 1).clone().scatter_add_(1, didx, dupd)
            [:, :n] + c["vert_deg"])
     llc_deg_mean = (deg * is_llc).sum(1) / is_llc.sum(1)

@@ -103,8 +103,7 @@ def design_cost(c: SpecConsts, adj: torch.Tensor) -> torch.Tensor:
     """(B, N, N) f32 hop-cost matrices: router pipeline + wire delay on
     present links, INF on absent ones, 0 on the diagonal."""
     full_adj = adj | c.vadj
-    cost = torch.where(full_adj, c.router_stages + c.link_delay,
-                       torch.tensor(routing.INF, device=adj.device))
+    cost = torch.where(full_adj, c.router_stages + c.link_delay, routing.INF)
     return cost.masked_fill(c.eye, 0.0)
 
 
@@ -356,8 +355,7 @@ def evaluate_with_tables(c: SpecConsts, perm: torch.Tensor, adj: torch.Tensor,
     else:
         objs, net_lat = _tail_device(c, full_adj, adj, f_slots, hops, delay,
                                      util_d, visits, pair_cpu_llc, power_slot)
-    objs = torch.where(connected[:, None], objs,
-                       torch.tensor(routing.INF, device=objs.device))
+    objs = torch.where(connected[:, None], objs, routing.INF)
     return objs, {"connected": connected, "net_lat": net_lat}
 
 

@@ -85,8 +85,7 @@ def next_hop(cost: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     index. Staying put (m == i) is not a candidate hop."""
     bsz, n, _ = cost.shape
     eye = torch.eye(n, dtype=torch.bool, device=cost.device)
-    step = torch.where(eye, torch.tensor(INF, dtype=cost.dtype,
-                                         device=cost.device), cost)
+    step = cost.masked_fill(eye, INF)
     if n <= DENSE_NMAX:
         nh = (step[:, :, :, None] + dist[:, None, :, :]).argmin(dim=2)
     else:

@@ -294,7 +294,8 @@ def score_block_max_packed(forest: PackedForest, xm, xs, x, n_real: int,
 
     On the card the fold across clusters counts on a per-device scratch
     counter that every launch leaves at zero: calls on one device must be
-    ordered on one stream."""
+    ordered on one stream, so a call on any stream but the device's
+    default stream raises."""
     rows = x.shape[0]
     if not 1 <= n_real <= rows:
         raise ValueError(f"n_real must be in [1, {rows}], got {n_real}")
@@ -306,10 +307,15 @@ def score_block_max_packed(forest: PackedForest, xm, xs, x, n_real: int,
         out.view(torch.float32)[0] = v
         out[1] = j
         return out
+    dev = x.device
+    if torch.cuda.current_stream(dev) != torch.cuda.default_stream(dev):
+        raise RuntimeError(
+            "score_block_max: K3's fold counter is shared by every launch on "
+            f"{dev}; call it on the device's default stream, not "
+            f"{torch.cuda.current_stream(dev)}")
     rec, val, t, m, f, depth, cl, br, route = _forest_args(forest, x)
     _check(xm, "xm", torch.float32, (f,))
     _check(xs, "xs", torch.float32, (f,))
-    dev = x.device
     n_clusters = -(-n_real // br)
     ws = _fold_scratch.get(dev)
     if ws is None or ws.numel() < 1 + 2 * n_clusters:

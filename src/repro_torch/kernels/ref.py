@@ -193,7 +193,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
-    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask, p, torch.zeros((), device=q.device))
     y = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
@@ -243,7 +243,7 @@ def ssd_chunked_ref(x, dt, a, b, c, d, *, chunk: int = 64,
     # where masking after it (the reference's order) gives inf * 0 = NaN.
     seg = torch.where(tril[None, None, :, :, None],
                       sc[:, :, :, None, :] - sc[:, :, None, :, :],
-                      torch.tensor(float("-inf"), device=x.device))
+                      float("-inf"))
     w = (g[..., None] * torch.exp(seg)
          * dtf[:, :, None, :, :])                             # (B,C,Q,K,H)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", w, xf)

@@ -1,15 +1,18 @@
 """Training launcher.
 
     python -m repro_torch.launch.train --arch zamba2-2.7b [--smoke] \\
-        [--steps 200] [--device cpu]
+        [--steps 200] [--dtype bfloat16] [--device cpu]
 
 Wires: config registry -> training model -> policy (microbatching, int8
 gradient compression) -> fault-tolerant Trainer (atomic checkpoints,
 restart from the latest, straggler watchdog) on the synthetic bigram
 stream. Runs on the CUDA device unless ``--device cpu`` is given;
-``--smoke`` takes the reduced config, computed in f32. The reference's
-``--distributed`` and ``--seq-shard`` need a device mesh and are not
-ported (ROADMAP.md, multi-card training)."""
+``--smoke`` takes the reduced config, computed in f32; ``--dtype`` is the
+parameter dtype (float32, as the reference, by default), and a config whose
+parameters, gradients and f32 AdamW moments the card's free memory cannot
+hold is refused before anything is allocated (``launch.memory``). The
+reference's ``--distributed`` and ``--seq-shard`` need a device mesh and
+are not ported (ROADMAP.md, multi-card training)."""
 
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from ..data import DataConfig, SyntheticLM
 from ..dist.sharding import Policy
 from ..models import build_train
 from ..train import OptConfig, TrainConfig, Trainer
+from .memory import DTYPES, free_bytes, refuse_unless_fits, train_bytes
 
 
 def main(argv=None) -> int:
@@ -39,6 +43,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_launch_train"))
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                    help="the parameter dtype")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
@@ -46,12 +52,14 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.smoke:
         cfg = cfg.scaled(compute_dtype=torch.float32)
+    cfg = cfg.scaled(dtype=DTYPES[args.dtype])
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{args.arch}: the encoder-decoder loss needs audio frames, and "
             f"SyntheticLM's batches carry none (the reference's launcher "
             f"cannot train it either)")
     model = build_train(cfg, device=args.device)
+    refuse_unless_fits(cfg, train_bytes(cfg), free_bytes(model.device))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                                   global_batch=args.global_batch))
     trainer = Trainer(
@@ -65,7 +73,7 @@ def main(argv=None) -> int:
     )
     out = trainer.run()
     print(f"[train] {args.arch} on {model.device}: step {out['final_step']} "
-          f"loss {out['final_loss']:.4f} "
+          f"loss {out['final_loss']:.6f} "
           f"(data floor {data.entropy_floor():.4f}); "
           f"stragglers: {len(out['straggler_events'])}")
     return 0

@@ -73,8 +73,7 @@ def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # Fold GQA: q heads as (KH, group) against the cache, no repeated KV.
     qg = q[:, 0].float().reshape(b, cfg.n_kv_heads, group, hd)
     logits = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float()) * (hd ** -0.5)
-    logits = torch.where(valid[None, None, None, :], logits,
-                         torch.tensor(-1e30, device=x.device))
+    logits = torch.where(valid[None, None, None, :], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     y = torch.einsum("bkgs,bskd->bkgd", probs, cache_v.float())
     y = y.reshape(b, 1, -1).to(cfg.compute_dtype)

@@ -8,13 +8,19 @@ card against the CPU, the fleet (``stage_dist``): the ``cuda``
 executor against ``serial`` and an interrupted run resumed, both byte for
 byte; and training: the K5/K6 autograd Functions against autograd through
 the plain versions, and smoke-size train steps on the card against the
-CPU.
+CPU; the smoke configs of the five architectures phase 15 of
+chip_smoke.py brought to the card served on the card against the CPU;
+no host sync in ``attn_decode``, a whole ``decode_step`` of every family,
+an evaluator's device pass and a meta step's; and K3 refusing a side
+stream.
 
 Marked ``cuda``: without a card every test skips (decided inside the
 fixture, never at import). On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -24,7 +30,8 @@ from repro_torch.core import routing
 from repro_torch.core.evaluate import Evaluator
 from repro_torch.core.features import design_features_batch
 from repro_torch.core.forest import RegressionForest
-from repro_torch.core.objectives import design_cost, make_consts
+from repro_torch.core.objectives import (design_cost, evaluate_with_tables,
+                                         make_consts)
 from repro_torch.core.problem import (random_design, spec_16, spec_64,
                                       spec_large)
 from repro_torch.core.traffic import traffic_matrix
@@ -597,7 +604,13 @@ def test_ssd_fn_on_card_is_the_kernel_forward_and_plain_backward(dev, s):
         assert torch.equal(a_, w)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "yi-6b"])
+#: The five architectures no card run reached before phase 15 of
+#: chip_smoke.py.
+FIVE_ARCHS = ["gemma3-1b", "mamba2-1.3b", "chameleon-34b",
+              "deepseek-coder-33b", "mistral-large-123b"]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "yi-6b", *FIVE_ARCHS])
 def test_smoke_train_steps_on_card_match_cpu(dev, arch):
     from repro_torch.ckpt.checkpoint import tree_leaves, tree_unflatten
     from repro_torch.configs import get_config
@@ -623,3 +636,149 @@ def test_smoke_train_steps_on_card_match_cpu(dev, arch):
         losses[str(device)] = [step(state, data.batch(i))[1]["loss"].item()
                                for i in range(5)]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", FIVE_ARCHS)
+def test_smoke_generates_the_same_tokens_on_card_and_cpu(dev, arch):
+    """Prompts of 70 tokens: past the gemma3 smoke's window of 8, and a
+    padded SSD tail for mamba2 (chunk 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(arch, smoke=True).scaled(compute_dtype=torch.float32)
+    gpu = build(cfg, seed=3, device=dev)
+    cpu = build(cfg, _to_cpu(gpu.params), device="cpu")
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(2, 70)).astype(np.int32)
+    scfg = ServeConfig(max_new_tokens=6, max_len=96)
+    before = ops.launches()
+    out = Engine(gpu, scfg).generate(prompts)
+    after = ops.launches()
+    ssm = cfg.family == "ssm"
+    assert after["ssd"] - before["ssd"] == (cfg.n_layers if ssm else 0)
+    assert (after["flash_attention"] - before["flash_attention"]
+            == (0 if ssm else cfg.n_layers))
+    np.testing.assert_array_equal(out, Engine(cpu, scfg).generate(prompts))
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """PyTorch's sync debug mode set to raise on any host-device
+    synchronisation inside the block."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_attn_decode_makes_no_host_sync(dev, window):
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attn_decode, init_attn_layer
+
+    cfg = get_config("gemma3-1b", smoke=True)
+    p = init_attn_layer(cfg, torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 1, cfg.d_model), generator=g, device=dev).to(
+        cfg.compute_dtype)
+    shape = (2, 32, cfg.n_kv_heads, cfg.resolved_head_dim)
+    ck = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    cv = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    attn_decode(cfg, p, x, ck, cv, 20, window=window)
+    with _no_host_sync():
+        y = attn_decode(cfg, p, x, ck, cv, 21, window=window)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen3-moe-30b-a3b",
+                                  "gemma3-1b", "mamba2-1.3b",
+                                  "whisper-base"])
+def test_decode_step_makes_no_host_sync(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config(arch, smoke=True)
+    model = build(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab, (2, 24)), device=dev)
+    if cfg.family == "encdec":
+        frames = torch.as_tensor(rng.standard_normal(
+            (2, 40, cfg.d_model)).astype(np.float32), device=dev)
+        logits, cache = model.prefill(frames, tokens, 32)
+    else:
+        logits, cache = model.prefill(tokens, 32)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    logits, cache = model.decode_step(cache, tok)
+    with _no_host_sync():
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        logits, cache = model.decode_step(cache, tok)
+    assert cache["pos"] == 26 and bool(torch.isfinite(logits).all())
+
+
+def test_evaluator_device_pass_makes_no_host_sync(dev):
+    """One evaluator call from its designs on the card to its objective
+    rows on the card: the cost build, APSP (K1), next hops, the walk (K4)
+    and the objectives. Only the upload of the designs and the read-back
+    of the rows sync, as the reference's transfers do."""
+    spec = spec_64()
+    ev = Evaluator(spec, traffic_matrix(spec, "BFS"), device=dev)
+    rng = np.random.default_rng(2)
+    designs = [random_design(spec, rng) for _ in range(12)]
+    want = ev.batch(designs)
+    perms = ev._to_dev([d.perm for d in designs], torch.int64)
+    adjs = ev._to_dev([d.adj for d in designs], torch.bool)
+    with _no_host_sync():
+        dist, nh = routing.routing_tables_batched(design_cost(ev.consts, adjs),
+                                                  ev.consts.apsp_iters)
+        objs, _ = evaluate_with_tables(ev.consts, perms, adjs, ev.f, dist, nh)
+    np.testing.assert_array_equal(objs.cpu().numpy().astype(np.float64), want)
+
+
+def _meta_case(dev):
+    from repro_torch.core.fused import MetaScorer
+    from repro_torch.core.problem import sample_neighbor_moves
+
+    spec = spec_16()
+    rng = np.random.default_rng(1)
+    designs = [random_design(spec, rng) for _ in range(200)]
+    x = design_features_batch(spec, designs)
+    forest = RegressionForest(seed=0, device=dev).fit(
+        x, x[:, 0] + rng.normal(size=200))
+    scorer = MetaScorer(spec, forest, device=dev)
+    moves = sample_neighbor_moves(spec, designs[0], rng, 20, 20)
+    return scorer, moves
+
+
+def test_meta_step_device_pass_makes_no_host_sync(dev):
+    """One fused meta step from its move arrays on the card: the
+    featurization (the link moves' degree update included) and K3. Only
+    the upload and K3's 8-byte read-back sync."""
+    from repro_torch.core.fused import fused_features
+
+    scorer, moves = _meta_case(dev)
+    j, v = scorer.score_moves(moves)
+    base_perm, base_lm, scalars = scorer._base_state(moves.base)
+    args = [torch.as_tensor(a, device=dev) for a in (
+        base_perm, base_lm, *scalars, *scorer._encode(moves))]
+    with _no_host_sync():
+        feats = fused_features(scorer.c, scorer._h["k"], args[0], args[1],
+                               tuple(args[2:7]), *args[7:])
+        out = ops.score_block_max_packed(scorer.forest, scorer.xm, scorer.xs,
+                                         feats, feats.shape[0],
+                                         torch.empty_like(scorer._out))
+    assert int(out[1]) == j and float(out.view(torch.float32)[0]) == v
+
+
+def test_score_block_max_raises_on_a_side_stream(dev):
+    """K3's fold counter is one per device: a call on a stream other than
+    the default stream raises instead of racing."""
+    scorer, moves = _meta_case(dev)
+    j, v = scorer.score_moves(moves)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side), pytest.raises(RuntimeError,
+                                                match="default stream"):
+        scorer.score_moves(moves)
+    assert scorer.score_moves(moves) == (j, v)

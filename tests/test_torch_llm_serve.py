@@ -1,5 +1,5 @@
 """The port's serving path on the CPU against the JAX package: the smoke
-configs of the decoder-only families (dense, MoE, SSM, hybrid) in f32
+configs of the decoder-only families (dense, VLM, MoE, SSM, hybrid) in f32
 compute, with the reference's weights carried over by
 ``convert.params_from_jax``.
 
@@ -27,10 +27,12 @@ from repro_torch.models import build
 from repro_torch.serve import Engine, ServeConfig
 
 ARCHS = ["zamba2-2.7b", "mamba2-1.3b", "yi-6b", "gemma3-1b",
-         "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"]
+         "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "chameleon-34b",
+         "deepseek-coder-33b", "mistral-large-123b"]
 TOL = {"zamba2-2.7b": 5e-3, "mamba2-1.3b": 1e-4, "yi-6b": 1e-4,
        "gemma3-1b": 1e-4, "qwen3-moe-30b-a3b": 1e-4,
-       "moonshot-v1-16b-a3b": 1e-4}
+       "moonshot-v1-16b-a3b": 1e-4, "chameleon-34b": 1e-4,
+       "deepseek-coder-33b": 1e-4, "mistral-large-123b": 1e-4}
 BATCH, SEQ, MAX_LEN = 2, 24, 32
 
 
