@@ -134,10 +134,30 @@ each raising on failure:
      (e) all five smoke configs in f32: tokens and three train steps'
      losses card against CPU. Then K5 at the new shapes (phase 8 holds
      them against the plain version) beside SDPA, and K6 at mamba2's. The
-     ``kernels`` line counts phase 15's launches in K5's and K6's.
+     ``kernels`` line counts phase 15's launches in K5's and K6's;
+ 16. the multi-card path (``launch.mesh``, ``dist.sharding``,
+     ``dist.collectives``, ``models.parallel``): (a) a one-rank NCCL
+     group and ``make_host_mesh()``'s (1, 1) mesh: zamba2-2.7b served
+     through ``Engine(model, mesh, Policy(), None, cfg)`` at phase 9's
+     shape, tokens and K5/K6 launches bit-equal to the meshless engine's
+     and no host sync in a decode step; two training steps at phase 13's
+     shape with and without the mesh, losses bit-equal; the train launcher
+     with ``--distributed`` on the group; (b) two spawned ranks sharing
+     the card over gloo, named (``gloo_on_cuda=True``): yi-6b in bf16 on
+     (1, 2) with ``--tp`` and on (2, 1) with FSDP, qwen3-moe-30b-a3b cut
+     to 4 layers with EP on (1, 2), prefill logits against one rank's at
+     phase 9's bar; two zamba2-2.7b training steps on (2, 1) with FSDP,
+     losses within 1e-5 of one rank's with two microbatches (the rows each
+     rank takes); (c) with ``--cards 4`` only: ``torchrun
+     --nproc-per-node 4`` of the serve launcher for mistral-large-123b in
+     bf16 on (4, 1) (prefill and decode ms, host syncs per decode step,
+     peak GB a card) and of two zamba2-2.7b training steps against one
+     card's with four microbatches. The ``kernels`` line counts (a)'s and
+     (b)'s launches.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
-non-zero before it.
+non-zero before it. ``--only-phase16`` builds the kernels and runs phase
+16 alone (with ``--cards 4``, (c) too).
 
     python3 chip_smoke.py --compare-kernels DIR
 
@@ -385,6 +405,14 @@ ATTN_CASES = (
     (8, 64, 8, 512, 128, True, None, "bfloat16"),   # chameleon prefill
     (8, 4, 1, 2048, 256, True, 512, "bfloat16"),    # gemma3 local, 8 x 2048
     (8, 4, 1, 2048, 256, True, None, "bfloat16"),   # gemma3 global
+    # Phase 16, a rank's share: yi-6b's heads under --tp on (1, 2), its
+    # rows on (2, 1); zamba2 training's rows on (2, 1) and on four cards;
+    # mistral-large-123b's prefill row on four cards.
+    (8, 16, 2, 512, 128, True, None, "bfloat16"),
+    (4, 32, 4, 512, 128, True, None, "bfloat16"),
+    (4, 32, 32, 512, 80, True, None, "bfloat16"),
+    (2, 32, 32, 512, 80, True, None, "bfloat16"),
+    (1, 96, 8, 16, 128, True, None, "bfloat16"),
 )
 #: The K5 shapes phase 14 (qwen3-moe, whisper) and phase 15 (deepseek,
 #: chameleon, gemma3's local and global layers) time.
@@ -397,6 +425,8 @@ SSD_CASES = (
     (2, 40, 8, 64, 64, 40),     # S < 64: one short chunk
     (2, 128, 7, 64, 64, 64),    # H = 7: a last head group of one head
     (2, 200, 8, 64, 16, 64),    # N = 16
+    (4, 512, 80, 64, 64, 64),   # phase 16: zamba2 training, a rank's rows
+    (2, 512, 80, 64, 64, 64),   # on (2, 1) and on four cards
     (8, 512, 64, 64, 128, 64),  # mamba2-1.3b prefill: K6's largest N
 )
 
@@ -466,6 +496,8 @@ def serve_full_width(torch, ops, ref, dev) -> dict:
     versions on the card; the smoke config on card and CPU."""
     import numpy as np
 
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.serve import Engine, ServeConfig
@@ -479,8 +511,8 @@ def serve_full_width(torch, ops, ref, dev) -> dict:
     print(f"zamba2-2.7b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params} parameters (the config's analytic count: "
           f"{cfg.param_count()}), built in {time.perf_counter() - t0:.1f} s")
-    engine = Engine(model, ServeConfig(max_new_tokens=new,
-                                       max_len=prompt_len + new))
+    engine = Engine(model, make_host_mesh(), Policy(), None,
+                    ServeConfig(max_new_tokens=new, max_len=prompt_len + new))
     prompts = np.random.default_rng(0).integers(
         1, cfg.vocab, size=(batch, prompt_len)).astype(np.int32)
 
@@ -564,8 +596,8 @@ def serve_full_width(torch, ops, ref, dev) -> dict:
     sp = np.random.default_rng(1).integers(1, smoke.vocab, size=(4, 100)
                                            ).astype(np.int32)
     scfg = ServeConfig(max_new_tokens=8, max_len=128)
-    a = Engine(on_card, scfg).generate(sp)
-    b = Engine(on_cpu, scfg).generate(sp)
+    a = Engine(on_card, make_host_mesh(), Policy(), None, scfg).generate(sp)
+    b = Engine(on_cpu, make_host_mesh(), Policy(), None, scfg).generate(sp)
     check(np.array_equal(a, b), "smoke zamba2: card and CPU tokens differ")
     print("smoke zamba2 (f32, S=100: a padded SSD tail): card and CPU "
           "generate identical tokens")
@@ -1869,6 +1901,7 @@ def train_full_width(torch, ops, ref, dev, card: str) -> None:
     the step function ``Trainer.run`` calls; K5/K6 launches counted per
     step; step 0's loss against the plain versions; memory, step time and
     one traced step."""
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.ckpt.checkpoint import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -1884,7 +1917,7 @@ def train_full_width(torch, ops, ref, dev, card: str) -> None:
     model = build_train(cfg, device=dev)
     opt = OptConfig(lr=3e-3, warmup_steps=max(steps // 10, 5),
                     total_steps=steps)
-    init_state, step = make_train_fns(model, Policy(), opt)
+    init_state, step = make_train_fns(model, make_host_mesh(), Policy(), opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1974,6 +2007,7 @@ def train_smoke_card_vs_cpu(torch, ops, dev) -> None:
     uninterrupted card run; the launcher in this process."""
     import tempfile
 
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -1995,15 +2029,16 @@ def train_smoke_card_vs_cpu(torch, ops, dev) -> None:
                                           global_batch=8, seed=0))
             # One initial state, drawn on the CPU, as every run's step-0
             # checkpoint: each Trainer restores it onto its own device.
-            state0 = make_train_fns(build_train(cfg, device="cpu"), Policy(),
-                                    opt)[0](0)
+            state0 = make_train_fns(build_train(cfg, device="cpu"),
+                                    make_host_mesh(), Policy(), opt)[0](0)
             for name in ("card", "cpu", "crash"):
                 mgr = CheckpointManager(str(root / arch / name))
                 mgr.save(0, state0, blocking=True)
                 mgr.close()
 
             def trainer(name, device):
-                return Trainer(build_train(cfg, device=device), Policy(), opt,
+                return Trainer(build_train(cfg, device=device),
+                               make_host_mesh(), Policy(), opt,
                                data, TrainConfig(
                                    steps=steps, ckpt_every=8,
                                    ckpt_dir=str(root / arch / name)))
@@ -2205,6 +2240,8 @@ def serve_moe_full_width(torch, ops, ref, dev, batch=MOE_BATCH,
     at layer 0, and the prefill held against the plain versions."""
     import numpy as np
 
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.serve import Engine, ServeConfig
@@ -2228,8 +2265,8 @@ def serve_moe_full_width(torch, ops, ref, dev, batch=MOE_BATCH,
           f"{cfg.moe_d_ff}; {n_params} parameters in bf16 (router f32), "
           f"the config's analytic count {cfg.param_count()} (it counts "
           f"each layer's two norms twice); built in {build_s:.1f} s")
-    engine = Engine(model, ServeConfig(max_new_tokens=new,
-                                       max_len=prompt_len + new))
+    engine = Engine(model, make_host_mesh(), Policy(), None,
+                    ServeConfig(max_new_tokens=new, max_len=prompt_len + new))
     prompts = np.random.default_rng(0).integers(
         1, cfg.vocab, size=(batch, prompt_len)).astype(np.int32)
 
@@ -2374,6 +2411,8 @@ def encdec_moe_smoke_card_vs_cpu(torch, dev) -> None:
     ``build_train`` loss of qwen3-moe and of whisper, card against CPU."""
     import numpy as np
 
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import build, build_train
@@ -2394,8 +2433,9 @@ def encdec_moe_smoke_card_vs_cpu(torch, dev) -> None:
         else:
             prompts = rng.integers(1, cfg.vocab, (4, 100)).astype(np.int32)
             scfg = ServeConfig(max_new_tokens=8, max_len=128)
-            a = Engine(on_card, scfg).generate(prompts)
-            b = Engine(on_cpu, scfg).generate(prompts)
+            host = make_host_mesh()
+            a = Engine(on_card, host, Policy(), None, scfg).generate(prompts)
+            b = Engine(on_cpu, host, Policy(), None, scfg).generate(prompts)
         check(np.array_equal(a, b), f"smoke {arch}: card and CPU tokens "
               f"differ")
         print(f"smoke {arch} (f32): card and CPU generate identical tokens")
@@ -2514,6 +2554,8 @@ def serve_held(torch, ops, ref, dev, cfg, prompt_len, want, plain,
     tokens, the launches and :func:`hold_prefill`'s result."""
     import numpy as np
 
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build
     from repro_torch.serve import Engine, ServeConfig
 
@@ -2529,8 +2571,8 @@ def serve_held(torch, ops, ref, dev, cfg, prompt_len, want, plain,
           f"{cfg.param_count()}), compute "
           f"{str(cfg.compute_dtype).split('.')[-1]}; built in {build_s:.1f} s")
     max_len = prompt_len + SERVE_NEW
-    engine = Engine(model, ServeConfig(max_new_tokens=SERVE_NEW,
-                                       max_len=max_len))
+    engine = Engine(model, make_host_mesh(), Policy(), None,
+                    ServeConfig(max_new_tokens=SERVE_NEW, max_len=max_len))
     prompts = np.random.default_rng(0).integers(
         1, cfg.vocab, size=(SERVE_BATCH, prompt_len)).astype(np.int32)
     ops.reset_launches()
@@ -2699,6 +2741,7 @@ def five_smoke_card_vs_cpu(torch, ops, dev) -> None:
     against CPU from one initial state."""
     import numpy as np
 
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.ckpt.checkpoint import tree_leaves, tree_unflatten
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -2715,9 +2758,10 @@ def five_smoke_card_vs_cpu(torch, ops, dev) -> None:
         prompts = rng.integers(1, cfg.vocab, (4, 70)).astype(np.int32)
         scfg = ServeConfig(max_new_tokens=8, max_len=96)
         ops.reset_launches()
-        a = Engine(on_card, scfg).generate(prompts)
+        host = make_host_mesh()
+        a = Engine(on_card, host, Policy(), None, scfg).generate(prompts)
         launched = {k: ops.launches()[k] for k in LLM_KERNELS}
-        b = Engine(on_cpu, scfg).generate(prompts)
+        b = Engine(on_cpu, host, Policy(), None, scfg).generate(prompts)
         check(np.array_equal(a, b), f"smoke {arch}: card and CPU tokens "
               f"differ")
         check(sum(launched.values()) == cfg.n_layers,
@@ -2726,11 +2770,12 @@ def five_smoke_card_vs_cpu(torch, ops, dev) -> None:
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
                                       global_batch=4))
         opt = OptConfig(lr=1e-2, warmup_steps=2)
-        state0 = make_train_fns(build_train(cfg, device="cpu"), Policy(),
-                                opt)[0](0)
+        state0 = make_train_fns(build_train(cfg, device="cpu"),
+                                make_host_mesh(), Policy(), opt)[0](0)
         losses = {}
         for device in ("cpu", dev):
-            step = make_train_fns(build_train(cfg, device=device), Policy(),
+            step = make_train_fns(build_train(cfg, device=device),
+                                  make_host_mesh(), Policy(),
                                   opt)[1]
             state = tree_unflatten(state0, [
                 t.detach().to(device, copy=True) for t in tree_leaves(state0)])
@@ -2766,6 +2811,544 @@ def time_k6_shape(torch, ops, ref, dev, case) -> None:
           f"3xTF32)")
 
 
+# ------------------------------------------------------------------ phase 16
+#: Phase 16: the multi-card path. (a) runs phase 9's serving shape and
+#: phase 13's training shape on a one-rank mesh; (b) two ranks sharing
+#: the card over gloo; (c) four cards (``--cards 4``).
+MESH_ARCH, MESH_DENSE, MESH_MOE_LAYERS = "zamba2-2.7b", "yi-6b", 4
+MESH_STEPS = 2
+#: (b) trains zamba2 cut to 12 of its 54 layers (2 shared-attention
+#: sites): gloo stages every gather and reduce-scatter through the host,
+#: 37-115 s a step at full depth on an H100's host. (c) trains it whole
+#: over NVLink.
+MESH_GLOO_LAYERS = 12
+MESH_LOSS_RTOL = 1e-5
+#: The step-0 grad norm: the gradients reduced over the mesh against one
+#: card's microbatches, f32 sums in another order.
+MESH_NORM_RTOL = 1e-6
+#: (c)'s step-1 loss on four cards against one card's: 5.47e-5 relative
+#: was read on four H100s (NCCL's ring order carried through AdamW's first
+#: step); the limit leaves that reading a factor of ~4.
+MESH_STEP1_RTOL = 2e-4
+RANKS_TIMEOUT_S = 600
+TORCHRUN_TIMEOUT_S = 900
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _llm_launches(ops) -> dict:
+    return {k: n for k, n in ops.launches().items() if k in LLM_KERNELS}
+
+
+def mesh_train_losses(torch, ops, dev, mesh, microbatches=1,
+                      n_layers=None, steps=MESH_STEPS) -> dict:
+    """``steps`` steps of zamba2-2.7b at full width (phase 13's shape; its
+    depth cut to ``n_layers`` where given) from seed 0 through
+    ``make_train_fns``, on ``mesh`` (None: ``make_host_mesh()``) with
+    ``microbatches``: the losses, the grad norms, the K5/K6 launches over
+    the steps, step ms and peak GB.
+
+    A mesh of n data shards computes what one rank computes with n
+    microbatches: each rank's rows' gradients, rounded in the bf16
+    compute, then summed in f32. One rank with one microbatch rounds the
+    whole batch's gradients in bf16 instead, and AdamW's first step
+    carries that difference into the next loss (1.6e-4 relative on (2, 1)
+    at full depth on an H100). The batches carry no loss mask: with the
+    pipeline's (BOS targets dropped) the halves count different tokens,
+    and a microbatched step averages the halves' means where the mesh
+    takes the whole batch's mean."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_train
+    from repro_torch.train import OptConfig, make_train_fns
+
+    cfg = get_config(MESH_ARCH)
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
+    opt = OptConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    model = build_train(cfg, device=dev)
+    policy = Policy(microbatches=microbatches)
+    init_state, step = make_train_fns(
+        model, make_host_mesh() if mesh is None else mesh, policy, opt)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    state = init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    ops.reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = {k: v for k, v in data.batch(i).items() if k != "mask"}
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    launched = _llm_launches(ops)
+    out = {"losses": losses, "grad_norms": norms, "launches": launched,
+           "step_ms": [w * 1e3 for w in walls],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, step, model
+    release(torch)
+    return out
+
+
+def mesh_one_rank(torch, ops, dev) -> dict:
+    """Phase 16 (a): a one-rank NCCL group and ``make_host_mesh()``'s (1, 1)
+    mesh. zamba2-2.7b at full width through ``Engine(model, mesh,
+    Policy(), None, cfg)``, 8 x 512 prompts, 16 new tokens, tokens and
+    K5/K6 launches equal to those on a (1, 1) mesh with no process group
+    (the meshless path), no host sync in a decode step; MESH_STEPS
+    training steps (phase 13's shape) on both, losses bit-equal; the train
+    launcher with ``--distributed`` on the group (smoke config). Returns
+    the group's path's K5/K6 launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh, init_distributed, make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    dev = init_distributed("cuda")
+    mesh = make_host_mesh()
+    check(mesh.shape == {"data": 1, "model": 1} and mesh.backend == "nccl"
+          and dist.get_world_size() == 1,
+          f"one-rank mesh {mesh.shape} over {mesh.backend}")
+    cfg = get_config(MESH_ARCH)
+    model = build(cfg, seed=0, device=dev)
+    scfg = ServeConfig(max_new_tokens=SERVE_NEW,
+                       max_len=SERVE_PROMPT + SERVE_NEW)
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    runs = {}
+    meshless = Mesh(("data", "model"), (1, 1))        # no process group
+    for name, engine in (("meshless", Engine(model, meshless, Policy(), None,
+                                             scfg)),
+                         ("mesh", Engine(model, mesh, Policy(), None, scfg))):
+        engine.generate(prompts)                      # warm
+        ops.reset_launches()
+        out = engine.generate(prompts)
+        torch.cuda.synchronize()
+        runs[name] = (out, _llm_launches(ops), dict(engine.stats))
+    (a, la, _), (b, lb, st) = runs["meshless"], runs["mesh"]
+    check(np.array_equal(a, b), "(1, 1) mesh: tokens differ from the "
+          "meshless engine's")
+    check(la == lb, f"(1, 1) mesh: launches {lb}, meshless {la}")
+    check(engine.model is model and model.plan is None,
+          "(1, 1) mesh: the engine should serve the meshless model")
+    tokens = torch.as_tensor(prompts.astype(np.int64), device=dev)
+    _, cache = engine.model.prefill(tokens, scfg.max_len)
+    check_decode_syncs(torch, engine.model, cache,
+                       torch.as_tensor(b[:, :1].astype(np.int64), device=dev),
+                       f"{MESH_ARCH} on the (1, 1) mesh")
+    print(f"(a) {MESH_ARCH} on make_host_mesh() {mesh.shape} over "
+          f"{mesh.backend}: tokens bit-equal to the meshless engine's, "
+          f"launches {json.dumps(lb)} both; prefill "
+          f"{st['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{st['decode_s'] * 1e3 / st['decode_steps']:.2f} ms per step")
+    del cache, engine, runs, model
+    release(torch)
+
+    plain = mesh_train_losses(torch, ops, dev, meshless)
+    meshed = mesh_train_losses(torch, ops, dev, mesh)
+    check(plain["losses"] == meshed["losses"],
+          f"(1, 1) mesh: losses {meshed['losses']} differ from the "
+          f"meshless {plain['losses']}")
+    check(plain["launches"] == meshed["launches"],
+          f"(1, 1) mesh: train launches {meshed['launches']}, meshless "
+          f"{plain['launches']}")
+    print(f"(a) {MESH_ARCH} training, {MESH_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: losses bit-equal with and without the mesh "
+          f"{meshed['losses']}, launches {json.dumps(meshed['launches'])}, "
+          f"step ms {[round(x, 1) for x in meshed['step_ms']]}, peak "
+          f"{meshed['peak_gb']:.2f} GB")
+    with tempfile.TemporaryDirectory() as d:
+        launch_train.main(["--arch", MESH_ARCH, "--smoke", "--distributed",
+                           "--steps", "1", "--ckpt-dir", d])
+    dist.destroy_process_group()
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        os.environ.pop(k, None)
+    launched = {k: lb.get(k, 0) + meshed["launches"].get(k, 0)
+                for k in LLM_KERNELS}
+    return launched
+
+
+def _serve_logits(torch, model, prompts, engine):
+    """(tokens of one generate, the whole batch's last-position logits of
+    that generate's prefill on the host, the engine's stats)."""
+    seen = []
+
+    def prefill(tokens, max_len, _own=model.prefill):
+        out = _own(tokens, max_len)
+        seen.append(out[0])
+        return out
+
+    model.prefill = prefill          # the instance's, for this generate
+    try:
+        tokens = engine.generate(prompts)
+    finally:
+        del model.prefill
+    st = dict(engine.stats)
+    logits, plan = seen[0], model.plan
+    if plan is not None:
+        with torch.inference_mode():
+            logits = plan.gather_rows(plan.gather_logits(logits),
+                                      len(prompts))
+    return tokens, logits.float().cpu(), st
+
+
+def mesh_configs(torch):
+    """Phase 16 (b)'s configs: yi-6b and qwen3-moe-30b-a3b (cut to
+    MESH_MOE_LAYERS layers) at full width with bf16 parameters."""
+    from repro_torch.configs import get_config
+
+    return {
+        MESH_DENSE: get_config(MESH_DENSE).scaled(dtype=torch.bfloat16),
+        MOE_ARCH: get_config(MOE_ARCH).scaled(dtype=torch.bfloat16,
+                                              n_layers=MESH_MOE_LAYERS),
+    }
+
+
+#: Phase 16 (b)'s serving runs: (arch, mesh shape, --tp, new tokens), cold
+#: (gloo's host staging sets their times). On (2, 1) every prefill and
+#: decode step gathers the other rank's half of the weights: fewer steps.
+MESH_SERVES = ((MESH_DENSE, (1, 2), True, SERVE_NEW),
+               (MESH_DENSE, (2, 1), True, 2),
+               (MOE_ARCH, (1, 2), False, SERVE_NEW))
+
+
+def ranks_on_one_card(rank, world, root):
+    """Phase 16 (b), in each of two ranks sharing ``cuda:0`` over gloo
+    (named: ``gloo_on_cuda=True``): MESH_SERVES and MESH_STEPS steps of
+    zamba2-2.7b on (2, 1) with FSDP. Returns per path its tokens, logits
+    (rank 0), K5/K6 launches, times and peak memory."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.sharding import Policy, serve_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    meshes = {s: Mesh.distributed(s, ("data", "model"), gloo_on_cuda=True)
+              for s in ((1, 2), (2, 1))}
+    cfgs = mesh_configs(torch)
+    out = {}
+    for arch, shape, tp, new in MESH_SERVES:
+        t0 = time.perf_counter()
+        mesh, policy = meshes[shape], serve_policy(tp)
+        release(torch)
+        model = build(cfgs[arch], seed=0, device=dev, mesh=mesh,
+                      policy=policy)
+        engine = Engine(model, mesh, policy, None,
+                        ServeConfig(max_new_tokens=new,
+                                    max_len=SERVE_PROMPT + SERVE_NEW))
+        prompts = np.random.default_rng(0).integers(
+            1, cfgs[arch].vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(
+            np.int32)
+        ops.reset_launches()
+        tokens, logits, st = _serve_logits(torch, model, prompts, engine)
+        launched = _llm_launches(ops)
+        out[(arch, shape)] = {
+            "tokens": tokens, "logits": logits if rank == 0 else None,
+            "launches": launched, "stats": st,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall_s": time.perf_counter() - t0}
+        del model, engine
+    release(torch)
+    t0 = time.perf_counter()
+    out["train"] = mesh_train_losses(torch, ops, dev, meshes[(2, 1)],
+                                     n_layers=MESH_GLOO_LAYERS)
+    out["train"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ranks_phase(torch, ops, dev, root) -> dict:
+    """Phase 16 (b): the one-rank references on the card, then two ranks
+    sharing it over gloo; tokens and logits held at phase 9's bar, losses
+    within MESH_LOSS_RTOL of one rank's with two microbatches (the rows
+    each rank takes; the gaps to one microbatch are printed beside).
+    Returns the ranks' K5/K6 launches summed."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfgs = mesh_configs(torch)
+    want = {}
+    for arch, cfg in cfgs.items():
+        release(torch)
+        model = build(cfg, seed=0, device=dev)
+        engine = Engine(model, make_host_mesh(), Policy(), None,
+                        ServeConfig(max_new_tokens=SERVE_NEW,
+                                    max_len=SERVE_PROMPT + SERVE_NEW))
+        prompts = np.random.default_rng(0).integers(
+            1, cfg.vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+        engine.generate(prompts)
+        want[arch] = _serve_logits(torch, model, prompts, engine)
+        del model, engine
+    release(torch)
+    one_mb = mesh_train_losses(torch, ops, dev, None,
+                               n_layers=MESH_GLOO_LAYERS)
+    two_mb = mesh_train_losses(torch, ops, dev, None, microbatches=2,
+                               n_layers=MESH_GLOO_LAYERS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        got = spawn_ranks(ranks_on_one_card, 2, (str(root),),
+                          backend="gloo", store_dir=d,
+                          timeout=RANKS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launched = {k: 0 for k in LLM_KERNELS}
+    for arch, shape, tp, new in MESH_SERVES:
+        r0, r1 = got[0][(arch, shape)], got[1][(arch, shape)]
+        w_tokens, w_logits, w_st = want[arch]
+        w_tokens = w_tokens[:, :new]
+        check(np.array_equal(r0["tokens"], r1["tokens"]),
+              f"{arch} on {shape}: the two ranks' tokens differ")
+        label = f"(b) {arch} on {shape}{' --tp' if tp else ''}"
+        hold_logits(torch, r0["logits"], w_logits,
+                    f"{label} prefill against one rank's")
+        rows = int((r0["tokens"] == w_tokens).all(axis=1).sum())
+        for r in (r0, r1):
+            for k in LLM_KERNELS:
+                launched[k] += r["launches"].get(k, 0)
+        check(r0["launches"]["flash_attention"] > 0,
+              f"{label}: K5 not launched")
+        st = r0["stats"]
+        print(f"{label}: {rows}/{SERVE_BATCH} rows' {new} tokens equal "
+              f"to one rank's; launches per rank {json.dumps(r0['launches'])};"
+              f" prefill {st['prefill_s'] * 1e3:.1f} ms (one rank "
+              f"{w_st['prefill_s'] * 1e3:.1f}), decode "
+              f"{st['decode_s'] * 1e3 / st['decode_steps']:.2f} ms per step "
+              f"(one rank {w_st['decode_s'] * 1e3 / w_st['decode_steps']:.2f})"
+              f"; peak {max(r0['peak_gb'], r1['peak_gb']):.2f} GB a rank; "
+              f"{r0['wall_s']:.1f} s")
+    tr = got[0]["train"]
+    for i, (a, b) in enumerate(zip(tr["losses"], two_mb["losses"])):
+        check(abs(a - b) <= MESH_LOSS_RTOL * abs(b),
+              f"(b) {MESH_ARCH} step {i} on (2, 1): loss {a} against one "
+              f"rank's with two microbatches {b}")
+    a, b = tr["grad_norms"][0], two_mb["grad_norms"][0]
+    check(abs(a - b) <= MESH_NORM_RTOL * abs(b),
+          f"(b) {MESH_ARCH} step 0 on (2, 1): grad norm {a} against one "
+          f"rank's with two microbatches {b}")
+    for r in got:
+        for k in LLM_KERNELS:
+            launched[k] += r["train"]["launches"].get(k, 0)
+    check(tr["launches"]["ssd"] > 0, "(b) training: K6 not launched")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(tr["losses"],
+                                                 one_mb["losses"])]
+    print(f"(b) {MESH_ARCH} ({MESH_GLOO_LAYERS} layers) training on (2, 1) "
+          f"FSDP over gloo: losses "
+          f"{tr['losses']} against one rank's with two microbatches "
+          f"{two_mb['losses']} (rtol {MESH_LOSS_RTOL}), step-0 grad norm "
+          f"{tr['grad_norms'][0]} against {two_mb['grad_norms'][0]} (rtol "
+          f"{MESH_NORM_RTOL}); relative gaps to "
+          f"one microbatch {[f'{g:.3g}' for g in gaps]}; step ms "
+          f"{[round(x, 1) for x in tr['step_ms']]} (one rank, two "
+          f"microbatches {[round(x, 1) for x in two_mb['step_ms']]}); peak "
+          f"{max(r['train']['peak_gb'] for r in got):.2f} GB a rank; "
+          f"launches per rank {json.dumps(tr['launches'])}; "
+          f"{tr['wall_s']:.1f} s")
+    print(f"(b) two ranks on one card: {wall:.1f} s wall for the spawn and "
+          f"every path above")
+    return launched
+
+
+def rank_worker(name: str) -> int:
+    """One rank of phase 16 (c), started by ``torchrun`` (``--rank-worker
+    NAME``): ``serve`` runs the serve launcher's ``main`` for
+    mistral-large-123b in bf16 on ``make_host_mesh()`` and reports host
+    syncs per decode step and peak memory; ``train`` takes MESH_STEPS
+    steps of zamba2-2.7b under ``init_distributed`` and ``make_host_mesh``.
+    Rank 0 prints one JSON line ``PHASE16C {...}``."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if name == "serve":
+        from repro_torch.launch import serve as launch_serve
+
+        seen = {}
+
+        class Counting(launch_serve.Engine):
+            def generate(self, prompts):
+                super().generate(prompts)                      # warm
+                out = super().generate(prompts)
+                seen["stats"] = dict(self.stats)
+                model, plan = self.model, self.model.plan
+                toks = torch.as_tensor(prompts.astype("int64"),
+                                       device=model.device)
+                _, cache = model.prefill(plan.batch_local(toks),
+                                         self.cfg.max_len)
+                step = torch.as_tensor(out[:, :1].astype("int64"),
+                                       device=model.device)
+                seen["syncs"] = host_syncs(torch, lambda: model.decode_step(
+                    cache, plan.batch_local(step)))
+                return out
+
+        launch_serve.Engine = Counting
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        launch_serve.main(["--arch", TOO_BIG_ARCH, "--dtype", "bfloat16"])
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                            device="cuda")
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+        st = seen["stats"]
+        report = {"prefill_ms": st["prefill_s"] * 1e3,
+                  "decode_ms": st["decode_s"] * 1e3 / st["decode_steps"],
+                  "syncs_per_step": len(seen["syncs"]),
+                  "sync_sites": sorted(set(seen["syncs"])),
+                  "peak_gb": float(peak), "launches": _llm_launches(ops)}
+    else:
+        from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+        dev = init_distributed("cuda")
+        mesh = make_host_mesh()
+        report = mesh_train_losses(torch, ops, dev, mesh)
+        peak = torch.tensor([report["peak_gb"]], device="cuda")
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+        report["peak_gb"] = float(peak)
+        report["mesh"] = mesh.shape
+    if dist.get_rank() == 0:
+        print("PHASE16C " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def four_cards(torch, ops, dev, root) -> dict:
+    """Phase 16 (c): ``torchrun --nproc-per-node 4`` of the serve
+    launcher (mistral-large-123b, bf16, the reference launcher's (4, 1)
+    mesh) and of MESH_STEPS zamba2-2.7b training steps against one card's
+    losses with four microbatches. Returns each run's report."""
+    import os
+
+    one = mesh_train_losses(torch, ops, dev, None, microbatches=4)
+    losses = one["losses"]
+
+    reports = {}
+    for name in ("serve", "train"):
+        cmd = ["torchrun", "--nproc-per-node", "4", "--master-port",
+               str(free_port()), str(root / "chip_smoke.py"),
+               "--rank-worker", name]
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              timeout=TORCHRUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("PHASE16C ")]
+        check(proc.returncode == 0 and lines,
+              f"(c) torchrun {name} exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("[serve]") or ln.startswith("[train]"):
+                print(f"(c) {ln}")
+        reports[name] = json.loads(lines[-1][len("PHASE16C "):])
+        reports[name]["wall_s"] = wall
+    s, t = reports["serve"], reports["train"]
+    gaps = [abs(x - y) / abs(y) for x, y in zip(t["losses"], losses)]
+    norm_gap = abs(t["grad_norms"][0] - one["grad_norms"][0]) / abs(
+        one["grad_norms"][0])
+    print(f"(c) {TOO_BIG_ARCH} bf16 over 4 cards (4, 1) FSDP: prefill "
+          f"{s['prefill_ms']:.1f} ms, decode {s['decode_ms']:.2f} ms per "
+          f"step, {s['syncs_per_step']} host syncs per decode step, peak "
+          f"{s['peak_gb']:.2f} GB a card, launches on rank 0 "
+          f"{json.dumps(s['launches'])}; {s['wall_s']:.1f} s of torchrun")
+    print(f"(c) {MESH_ARCH} training on 4 cards {t['mesh']}: losses "
+          f"{t['losses']} against one card's with four microbatches "
+          f"{losses} (relative gaps {[f'{g:.3g}' for g in gaps]}); step-0 "
+          f"grad norm {t['grad_norms'][0]} against {one['grad_norms'][0]} "
+          f"(relative gap {norm_gap:.3g}); step ms "
+          f"{[round(x, 1) for x in t['step_ms']]} (one card "
+          f"{[round(x, 1) for x in one['step_ms']]}); peak "
+          f"{t['peak_gb']:.2f} GB a card; {t['wall_s']:.1f} s of torchrun")
+    check(s["syncs_per_step"] == 0,
+          f"(c) mistral decode step: {s['syncs_per_step']} host syncs at "
+          f"{s['sync_sites']}")
+    # Step 0's loss and grad norm (the gradients reduced over the four
+    # cards) at the (b) bars. Four ranks sum each gradient in NCCL's ring
+    # order, and AdamW's first step, which moves a parameter by about
+    # lr * sign(g) where |g| is small, carries those f32 roundings into
+    # step 1's loss: hence its own limit (MESH_STEP1_RTOL).
+    check(gaps[0] <= MESH_LOSS_RTOL,
+          f"(c) {MESH_ARCH} step 0 on {t['mesh']}: loss {t['losses'][0]} "
+          f"against one card's {losses[0]}")
+    check(norm_gap <= MESH_NORM_RTOL,
+          f"(c) {MESH_ARCH} step 0 on {t['mesh']}: grad norm "
+          f"{t['grad_norms'][0]} against one card's {one['grad_norms'][0]}")
+    check(gaps[1] <= MESH_STEP1_RTOL,
+          f"(c) {MESH_ARCH} step 1 on {t['mesh']}: loss {t['losses'][1]} "
+          f"against one card's {losses[1]}")
+    return reports
+
+
+def phase16(torch, ops, dev, card: str, cards: int, root: Path,
+            parts: str = "abc") -> dict:
+    """Phase 16 (a)-(c), those of ``parts`` ((c) only with ``cards`` >=
+    4); returns the K5/K6 launches of (a) and (b)."""
+    phase("16 the multi-card path: a one-rank mesh, two ranks on one card, "
+          "four cards")
+    print(f"card: {card}")
+    launched = {k: 0 for k in LLM_KERNELS}
+    t0 = time.perf_counter()
+    for part, run in (("a", lambda: mesh_one_rank(torch, ops, dev)),
+                      ("b", lambda: ranks_phase(torch, ops, dev, root))):
+        if part not in parts:
+            print(f"({part}): not run (--only-phase16 {parts})")
+            continue
+        release(torch)
+        got = run()
+        for k in LLM_KERNELS:
+            launched[k] += got[k]
+    ran = [p for p in "ab" if p in parts]
+    if ran:
+        print(f"phase 16 ({') and ('.join(ran)}): "
+              f"{time.perf_counter() - t0:.1f} s; launches "
+              f"{json.dumps(launched)}, added to the kernels line's counts")
+    if "c" not in parts:
+        print(f"(c): not run (--only-phase16 {parts})")
+    elif cards >= 4:
+        check(torch.cuda.device_count() >= 4,
+              f"--cards {cards}: {torch.cuda.device_count()} cards here")
+        release(torch)
+        four_cards(torch, ops, dev, root)
+    else:
+        print("(c) four cards: not run (chip_smoke.py --cards 4 runs it)")
+    return launched
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2774,7 +3357,17 @@ def main(argv: list[str]) -> int:
                         help="time K1-K6 of checkout DIR beside this "
                              "one's, and nothing else")
     parser.add_argument("--time-kernels", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--cards", type=int, default=1,
+                        help="4 also runs phase 16 (c) on four cards")
+    parser.add_argument("--only-phase16", nargs="?", const="abc",
+                        metavar="PARTS",
+                        help="build the kernels and run phase 16 alone: "
+                             "its parts of PARTS (of a, b and c; all "
+                             "when none is named)")
+    parser.add_argument("--rank-worker", help=argparse.SUPPRESS)
     opts = parser.parse_args(argv)
+    if opts.rank_worker:
+        return rank_worker(opts.rank_worker)
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -2832,6 +3425,12 @@ def main(argv: list[str]) -> int:
         if name in ("flash_attention", "ssd"):
             check(sum(counts.values()) > 0,
                   f"{name}: no HMMA/HGMMA in its SASS")
+    if opts.only_phase16:
+        phase16(torch, ops, dev, card, opts.cards, root, opts.only_phase16)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+        return 0
 
     # ------------------------------------------------------------- phase 2
     phase("2 kernels against their plain versions")
@@ -3172,6 +3771,11 @@ def main(argv: list[str]) -> int:
         row["launches"] += sum(n.get(row["name"], 0) for n in launched15)
     print(f"phase 15 launches on its full-width paths: "
           f"{json.dumps(launched15)}, added to the kernels line's counts")
+
+    # ------------------------------------------------------------ phase 16
+    launched16 = phase16(torch, ops, dev, card, opts.cards, root)
+    for row in kernels:
+        row["launches"] += launched16.get(row["name"], 0)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,7 +16,10 @@ nothing of it:
     tree for :func:`repro_torch.models.build` (:func:`params_from_jax`);
   * a reference trainer state (params, Adam moments, step and the error
     feedback, as numpy) becomes the port's train state
-    (:func:`train_state_from_jax`), so both compute the same step.
+    (:func:`train_state_from_jax`), so both compute the same step;
+  * a reference model's parameter tree becomes one rank's shards of it on
+    a device mesh under a sharding policy (:func:`rank_params`), the
+    splits ``dist.sharding.param_specs`` gives.
 """
 
 from __future__ import annotations
@@ -107,3 +110,15 @@ def train_state_from_jax(cfg: ModelConfig, state: dict) -> dict:
     if "err" in state:
         out["err"] = params_from_jax(cfg, state["err"])
     return out
+
+
+def rank_params(cfg: ModelConfig, tree: dict, mesh, policy=None) -> dict:
+    """This rank's shards (``mesh.coords``) of a reference model's
+    parameter tree on ``mesh`` under ``policy`` (``Policy()`` when None):
+    contiguous CPU tensors, for ``build(cfg, ..., mesh=mesh)``'s model.
+    On a one-rank mesh, the whole tree."""
+    from .models.parallel import plan_for
+
+    params = params_from_jax(cfg, tree)
+    plan = plan_for(cfg, mesh, policy)
+    return params if plan is None else plan.local(params)

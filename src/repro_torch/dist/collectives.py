@@ -1,0 +1,172 @@
+"""Collectives over one mesh axis, as autograd Functions: the
+communication that GSPMD inserts into the reference's sharded programs,
+written out.
+
+Gradients follow one convention: a tensor that more than one rank holds
+(replicated, or a partial sum) carries on each rank a *partial* gradient,
+and the true gradient is the sum over those ranks. Hence
+
+* :func:`all_gather` gathers shards along a dim; its backward
+  reduce-scatters (sums the partial gradients and hands each rank its
+  shard's);
+* :func:`reduce_scatter` sums partial tensors and scatters the sum along a
+  dim; its backward all-gathers;
+* :func:`all_reduce` sums partial tensors; its backward all-reduces;
+* :func:`psum_scalar` and :func:`pmax` reduce values no gradient flows
+  through.
+
+A loss that ``n`` ranks compute alike is divided by ``n`` on each before
+the backward pass (``train.train_step``), and a parameter's gradient is
+summed over the mesh axes its spec does not split it over.
+
+On an axis of size 1 (a ``(1, 1)`` mesh included) every function returns
+its input untouched. The backend goes with the tensor: NCCL for CUDA
+tensors, gloo for CPU tensors; gloo on CUDA tensors only on a mesh made
+with ``gloo_on_cuda=True``. A failed collective raises; nothing falls back
+to another backend or to the host.
+
+``torch.distributed.nn.functional`` has autograd collectives of the same
+convention, but torch 2.13 deprecates them (a FutureWarning on every
+call), its gather returns a list of tensors, and on gloo its gather's
+backward emulates the reduce-scatter by an all-to-all and a sum: hence
+the three small Functions here over the single-tensor collectives."""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+def _check(mesh, axis: str, x: torch.Tensor):
+    """The axis's group, after checking that its backend may carry ``x``."""
+    group = mesh.group(axis)
+    backend = dist.get_backend(group)
+    if x.is_cuda and backend != "nccl" and not mesh.gloo_on_cuda:
+        raise RuntimeError(
+            f"a CUDA tensor over the {backend} group of axis {axis!r}: gloo "
+            f"carries CUDA tensors only on a mesh made with "
+            f"gloo_on_cuda=True")
+    if not x.is_cuda and backend == "nccl":
+        raise RuntimeError(f"a CPU tensor over the nccl group of axis "
+                           f"{axis!r}")
+    return group
+
+
+def _gather(mesh, axis, x, dim):
+    group = _check(mesh, axis, x)
+    n = mesh.axis_size(axis)
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter(mesh, axis, x, dim):
+    group = _check(mesh, axis, x)
+    n = mesh.axis_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over axis {axis!r} of {n}")
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce(mesh, axis, x, op=dist.ReduceOp.SUM):
+    group = _check(mesh, axis, x)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _gather(mesh, axis, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(*ctx.args[:2], g, ctx.args[2]), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _scatter(mesh, axis, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(*ctx.args[:2], g, ctx.args[2]), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return _reduce(mesh, axis, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(*ctx.args, g), None, None
+
+
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def all_gather(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """Concatenate the shards of ``x`` along ``dim`` over ``axis`` (a mesh
+    axis, or a tuple of them split row-major, as a spec entry)."""
+    for a in reversed(_axes(axis)):
+        if mesh.axis_size(a) > 1:
+            x = _AllGather.apply(x, mesh, a, dim)
+    return x
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """Sum ``x`` over ``axis`` and keep this rank's shard along ``dim``."""
+    for a in _axes(axis):
+        if mesh.axis_size(a) > 1:
+            x = _ReduceScatter.apply(x, mesh, a, dim)
+    return x
+
+
+def all_reduce(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Sum ``x`` over ``axis``."""
+    for a in _axes(axis):
+        if mesh.axis_size(a) > 1:
+            x = _AllReduce.apply(x, mesh, a)
+    return x
+
+
+def psum_scalar(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Sum over ``axis`` with no gradient (counts, norms, reports)."""
+    with torch.no_grad():
+        for a in _axes(axis):
+            if mesh.axis_size(a) > 1:
+                x = _reduce(mesh, a, x)
+    return x
+
+
+def pmax(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Elementwise maximum over ``axis``, with no gradient."""
+    with torch.no_grad():
+        for a in _axes(axis):
+            if mesh.axis_size(a) > 1:
+                x = _reduce(mesh, a, x, dist.ReduceOp.MAX)
+    return x
+
+
+def split(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """This rank's shard of ``x`` along ``dim`` (no communication; the
+    backward pads the gradient with zeros, partial by the convention)."""
+    for a in _axes(axis):
+        n = mesh.axis_size(a)
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, mesh.axis_index(a) * size, size)
+    return x

@@ -2,17 +2,23 @@
 
     python -m repro_torch.launch.train --arch zamba2-2.7b [--smoke] \\
         [--steps 200] [--dtype bfloat16] [--device cpu]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch zamba2-2.7b --distributed [--seq-shard] [--grad-compress]
 
-Wires: config registry -> training model -> policy (microbatching, int8
-gradient compression) -> fault-tolerant Trainer (atomic checkpoints,
-restart from the latest, straggler watchdog) on the synthetic bigram
-stream. Runs on the CUDA device unless ``--device cpu`` is given;
-``--smoke`` takes the reduced config, computed in f32; ``--dtype`` is the
-parameter dtype (float32, as the reference, by default), and a config whose
-parameters, gradients and f32 AdamW moments the card's free memory cannot
-hold is refused before anything is allocated (``launch.memory``). The
-reference's ``--distributed`` and ``--seq-shard`` need a device mesh and
-are not ported (ROADMAP.md, multi-card training)."""
+Wires: config registry -> training model -> mesh and sharding policy
+(microbatching, int8 gradient compression, sequence sharding) ->
+fault-tolerant Trainer (atomic, rank-aware checkpoints, restart from the
+latest, straggler watchdog) on the synthetic bigram stream. Runs on the
+CUDA device unless ``--device cpu`` is given; ``--smoke`` takes the
+reduced config, computed in f32; ``--dtype`` is the parameter dtype
+(float32, as the reference, by default), and a config whose parameters,
+gradients and f32 AdamW moments one card's free memory cannot hold is
+refused before anything is allocated (``launch.memory``).
+``--distributed`` joins the process group from ``torchrun``'s
+environment (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and
+raises without it; the mesh is the reference launcher's,
+``make_host_mesh()``: (ranks, 1), the state FSDP-split over ``data``.
+``--seq-shard`` maps the sequence onto ``model``, as the reference's."""
 
 from __future__ import annotations
 
@@ -24,10 +30,12 @@ import torch
 
 from ..configs import get_config
 from ..data import DataConfig, SyntheticLM
+from ..device import resolve_device
 from ..dist.sharding import Policy
 from ..models import build_train
 from ..train import OptConfig, TrainConfig, Trainer
 from .memory import DTYPES, free_bytes, refuse_unless_fits, train_bytes
+from .mesh import init_distributed, make_host_mesh
 
 
 def main(argv=None) -> int:
@@ -39,7 +47,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="sequence parallelism: the sequence over 'model'")
     ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group torchrun's environment "
+                         "describes (raises without it)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_launch_train"))
     ap.add_argument("--lr", type=float, default=3e-3)
@@ -58,13 +71,19 @@ def main(argv=None) -> int:
             f"{args.arch}: the encoder-decoder loss needs audio frames, and "
             f"SyntheticLM's batches carry none (the reference's launcher "
             f"cannot train it either)")
-    model = build_train(cfg, device=args.device)
-    refuse_unless_fits(cfg, train_bytes(cfg), free_bytes(model.device))
+    dev = (init_distributed(args.device) if args.distributed
+           else resolve_device(args.device))
+    mesh = make_host_mesh()
+    policy = Policy(microbatches=args.microbatches,
+                    grad_compress=args.grad_compress)
+    if args.seq_shard:
+        policy = policy.with_logical(seq=("model",))
+    refuse_unless_fits(cfg, train_bytes(cfg, mesh, policy), free_bytes(dev))
+    model = build_train(cfg, device=dev, mesh=mesh, policy=policy)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                                   global_batch=args.global_batch))
     trainer = Trainer(
-        model, Policy(microbatches=args.microbatches,
-                      grad_compress=args.grad_compress),
+        model, mesh, policy,
         OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 5),
                   total_steps=args.steps),
         data,
@@ -72,7 +91,10 @@ def main(argv=None) -> int:
                     ckpt_every=max(args.steps // 4, 10)),
     )
     out = trainer.run()
-    print(f"[train] {args.arch} on {model.device}: step {out['final_step']} "
+    if any(mesh.coords):
+        return 0
+    where = f"{dev}" if mesh.size == 1 else f"{mesh.shape} ranks"
+    print(f"[train] {args.arch} on {where}: step {out['final_step']} "
           f"loss {out['final_loss']:.6f} "
           f"(data floor {data.entropy_floor():.4f}); "
           f"stragglers: {len(out['straggler_events'])}")

@@ -3,14 +3,18 @@ loss.
 
 The reference's models are functional JAX over parameter pytrees; the
 port keeps the same nested-dict layout (stacked ``(L, ...)`` layer leaves)
-so one tree converts into the other leaf for leaf. One card holds the whole
-model, so there is no sharding hook. Layers run in a Python loop, so the
+so one tree converts into the other leaf for leaf. The sharding hook
+(:func:`activation_sharding`, :func:`pshard`, :func:`layer_params`) is
+the reference's: with no plan installed every hook returns its input, and
+on a mesh ``models.parallel.ShardPlan`` puts the collectives where they
+mark. Layers run in a Python loop, so the
 reference's ``unroll_layers`` has no counterpart; ``remat`` means what it
 means there: the training loss recomputes each layer's activations in the
 backward pass (serving ignores it)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -151,30 +155,42 @@ class MetaGenerator(torch.Generator):
     device = torch.device("meta")
 
 
-def stack_layers(n: int, draw) -> dict:
+def stack_layers(n: int, draw, name: str = "layers") -> dict:
     """``n`` layer trees, drawn one at a time by ``draw()``, as one tree of
     stacked ``(n, ...)`` leaves. Each stacked leaf is allocated once and
     filled layer by layer, so one layer's tree is the only other copy held
-    (the whole model need not fit twice)."""
-    def empty(tree):
+    (the whole model need not fit twice). Under a shard plan each drawn
+    layer is cut to this rank's shards first (``name`` is the stack's key
+    in the parameter tree)."""
+    def rows(path):
+        """This rank's (first, count) of a stack whose layer dim the plan
+        splits, else all n."""
+        got = None if _PLAN is None else _PLAN.stack_rows(path)
+        return (0, n) if got is None else got
+
+    def empty(tree, path):
         if isinstance(tree, dict):
-            return {k: empty(v) for k, v in tree.items()}
-        return torch.empty((n, *tree.shape), dtype=tree.dtype,
+            return {k: empty(v, path + (k,)) for k, v in tree.items()}
+        return torch.empty((rows(path)[1], *tree.shape), dtype=tree.dtype,
                            device=tree.device)
 
-    def put(out, tree, i):
+    def put(out, tree, i, path):
         for k, v in tree.items():
             if isinstance(v, dict):
-                put(out[k], v, i)
-            else:
-                out[k][i] = v
+                put(out[k], v, i, path + (k,))
+                continue
+            first, count = rows(path + (k,))
+            if first <= i < first + count:
+                out[k][i - first] = v
 
     out = None
     for i in range(n):
         tree = draw()
+        if _PLAN is not None:
+            tree = _PLAN.local(tree, (name,))
         if out is None:
-            out = empty(tree)
-        put(out, tree, i)
+            out = empty(tree, (name,))
+        put(out, tree, i, (name,))
     return out
 
 
@@ -198,3 +214,67 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# --------------------------------------------------------------- sharding hook
+#: The installed ``models.parallel.ShardPlan``, or None. A module global,
+#: not a thread-local: autograd recomputes remat'd layers on its own
+#: thread in the backward pass, and they must see the same plan.
+_PLAN = None
+
+
+@contextlib.contextmanager
+def activation_sharding(plan):
+    """Install a shard plan for the model code run inside (the backward
+    pass of a training step included); None installs nothing."""
+    global _PLAN
+    prev = _PLAN
+    _PLAN = plan
+    try:
+        yield
+    finally:
+        _PLAN = prev
+
+
+def current_plan():
+    return _PLAN
+
+
+def pshard(x: torch.Tensor, where: str, seq: bool = False) -> torch.Tensor:
+    """Mark a block boundary of the residual stream: ``"in"`` before a
+    block's first products (the sequence gathered when ``seq``, the
+    stream split along the sequence), ``"partial"`` after a row-parallel
+    product (summed over the model axis), ``"whole"`` after a block whose
+    output every rank computed whole. Without a plan, ``x``."""
+    if _PLAN is None:
+        return x
+    if where == "in":
+        return _PLAN.enter(x, seq)
+    return _PLAN.exit(x, where == "partial", seq)
+
+
+def layer_stack(stack: dict, name: str) -> dict:
+    """A stack of layers (``params[name]``) ready to split into layers:
+    leaves whose layer dim the plan splits gathered along it. Without a
+    plan, ``stack``."""
+    if _PLAN is None:
+        return stack
+    return _PLAN.gather_stack(stack, (name,))
+
+
+def layer_params(p: dict, prefix: tuple) -> dict:
+    """A layer's (or the top level's) weights ready for its compute: the
+    splits the plan does not keep gathered. Without a plan, ``p``."""
+    if _PLAN is None:
+        return p
+    return _PLAN.gather(p, prefix)
+
+
+def local_params(tree: dict) -> dict:
+    """The top-level (unstacked) leaves of a drawn parameter tree cut to
+    this rank's shards under a shard plan; ``tree`` as it is without one.
+    Stacked leaves were cut as they were drawn (:func:`stack_layers`)."""
+    if _PLAN is None:
+        return tree
+    return {k: v if k in _PLAN.stacks else _PLAN.local({k: v}, ())[k]
+            for k, v in tree.items()}

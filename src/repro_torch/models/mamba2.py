@@ -4,7 +4,12 @@
 Structure as the reference's (arXiv:2405.21060, ngroups = 1): in_proj ->
 (z | x | B | C | dt), short causal depthwise conv over (x, B, C), softplus
 dt, SSD core, gated RMSNorm, out_proj. Decode carries (conv window, SSM
-state)."""
+state).
+
+On a mesh the mixer runs whole on every rank (its packed ``in_proj`` is
+gathered over the model axis: ``models/parallel.py``); a decode state
+split along its state dim is stepped on the rank's slice of B and C and
+its ``C h`` summed over the model axis."""
 
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from .common import ModelConfig, init_dense, rms_norm
+from .common import ModelConfig, current_plan, init_dense, pshard, rms_norm
 
 
 def _dims(cfg: ModelConfig):
@@ -46,11 +51,13 @@ def _split_proj(cfg, proj):
 
 
 def mamba_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
-               return_state: bool = False):
+               return_state: bool = False, seq: bool = False):
     """x (B, S, D) -> (B, S, D); with ``return_state`` also the decode state
     {"conv": (B, K-1, conv) f32, "ssm": (B, H, N, P) f32} after the last
-    position, the SSD kernel's final state."""
+    position, the SSD kernel's final state. ``seq``: the residual stream
+    is split along the sequence (``models.common.pshard``)."""
     h, p_, n, d_in, _ = _dims(cfg)
+    x = pshard(x, "in", seq)
     b, s, _ = x.shape
     cd = cfg.compute_dtype
 
@@ -78,7 +85,7 @@ def mamba_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y, final_ssm = out if return_state else (out, None)
     y = y.reshape(b, s, d_in).to(cd)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(cd)
+    out = pshard(y @ p["out_proj"].to(cd), "whole", seq)
     if not return_state:
         return out
     conv_state = pad[:, s:s + k - 1, :].float()              # last K-1 raw
@@ -107,9 +114,16 @@ def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     a = -torch.exp(p["a_log"])                               # (H,)
     decay = torch.exp(dt * a[None, :])
     xh = xs.reshape(b, h, p_).float()
+    n_local = ssm_state.shape[2]
+    if n_local != n:                     # the state split over the model axis
+        plan = current_plan()
+        bmat, cmat = plan.ssm_slice(bmat, n_local), plan.ssm_slice(cmat,
+                                                                   n_local)
     upd = torch.einsum("bn,bhp->bhnp", bmat.float(), xh * dt[..., None])
     ssm = decay[..., None, None] * ssm_state + upd
     y = torch.einsum("bn,bhnp->bhp", cmat.float(), ssm)
+    if n_local != n:
+        y = plan.model_sum(y)
     y = y + p["d_skip"][None, :, None] * xh
     y = y.reshape(b, d_in).to(cd)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

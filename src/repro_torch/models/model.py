@@ -2,7 +2,15 @@
 the encoder-decoder family), an ``nn.Module`` that holds the parameters on
 one explicit device and serves ``prefill`` / ``decode_step`` /
 ``init_cache``; ``build_train(cfg) -> TrainModel``, the reference's
-``init`` / ``loss`` pair that the train step builds on."""
+``init`` / ``loss`` pair that the train step builds on.
+
+Both take a device ``mesh`` and a sharding ``policy``: on a mesh of more
+than one rank the model holds this rank's shards of every parameter
+(``models.parallel.ShardPlan``; drawn whole layer by layer from the same
+seed as one process draws them, and cut as they are drawn, or cut from
+the whole tree it is given) and runs its methods under that plan. On a
+one-rank mesh, or none, there is no plan: the meshless path, bit for
+bit."""
 
 from __future__ import annotations
 
@@ -13,7 +21,8 @@ from torch import nn
 
 from ..device import resolve_device
 from . import encdec, transformer
-from .common import MetaGenerator, ModelConfig
+from .common import MetaGenerator, ModelConfig, activation_sharding
+from .parallel import ShardPlan, plan_for
 
 #: Leaves the reference casts to the compute dtype at every use (matmul
 #: weights, the experts' too, the conv, the embedding). The model casts
@@ -42,9 +51,11 @@ class _Weights(nn.Module):
     casts to the compute dtype are kept cast once, in ``run_params`` (the
     same tensors where the two dtypes agree)."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, device):
+    def __init__(self, cfg: ModelConfig, params: dict, device,
+                 plan: ShardPlan | None = None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         self.device = torch.device(device)
         self.params = _map(params, lambda k, v: v.to(self.device))
         for path, _, v in _leaves(self.params):
@@ -58,31 +69,38 @@ class Model(_Weights):
     """A decoder-only LM of the dense / VLM / MoE / SSM / hybrid families.
     Every method runs under ``torch.inference_mode``."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, device):
+    def __init__(self, cfg: ModelConfig, params: dict, device,
+                 plan: ShardPlan | None = None):
         transformer.check_family(cfg)
-        super().__init__(cfg, params, device)
+        super().__init__(cfg, params, device, plan)
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, max_len: int):
-        """tokens (B, S) -> (last-position logits (B, 1, V), cache)."""
-        return transformer.prefill(self.cfg, self.run_params,
-                                   tokens.to(self.device), max_len)
+        """tokens (B, S) -> (last-position logits (B, 1, V), cache). On a
+        mesh: this rank's rows, and the logits of its share of the
+        vocabulary where the head is split."""
+        with activation_sharding(self.plan):
+            return transformer.prefill(self.cfg, self.run_params,
+                                       tokens.to(self.device), max_len)
 
     @torch.inference_mode()
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """tokens (B, 1) -> (logits (B, 1, V), cache updated in place)."""
-        return transformer.decode_step(self.cfg, self.run_params, cache,
-                                       tokens.to(self.device))
+        with activation_sharding(self.plan):
+            return transformer.decode_step(self.cfg, self.run_params, cache,
+                                           tokens.to(self.device))
 
     @torch.inference_mode()
     def forward_full(self, tokens: torch.Tensor):
         """Hidden states (B, S, D) of a full-sequence pass."""
-        return transformer.forward_full(self.cfg, self.run_params,
-                                        tokens.to(self.device))[0]
+        with activation_sharding(self.plan):
+            return transformer.forward_full(self.cfg, self.run_params,
+                                            tokens.to(self.device))[0]
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return transformer.init_cache(self.cfg, batch, max_len, dtype,
-                                      device=self.device)
+        with activation_sharding(self.plan):
+            return transformer.init_cache(self.cfg, batch, max_len, dtype,
+                                          device=self.device)
 
 
 class EncDecModel(_Weights):
@@ -90,37 +108,42 @@ class EncDecModel(_Weights):
     embeddings (B, S_enc, D). Every method runs under
     ``torch.inference_mode``."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, device):
+    def __init__(self, cfg: ModelConfig, params: dict, device,
+                 plan: ShardPlan | None = None):
         if cfg.family != "encdec":
             raise ValueError(f"{cfg.name}: EncDecModel takes the encdec "
                              f"family, got {cfg.family}")
-        super().__init__(cfg, params, device)
+        super().__init__(cfg, params, device, plan)
 
     @torch.inference_mode()
     def encode(self, frames: torch.Tensor):
         """frames (B, S_enc, D) -> encoder states (B, S_enc, D)."""
-        return encdec.encode(self.cfg, self.run_params,
-                             frames.to(self.device))
+        with activation_sharding(self.plan):
+            return encdec.encode(self.cfg, self.run_params,
+                                 frames.to(self.device))
 
     @torch.inference_mode()
     def prefill(self, frames: torch.Tensor, tokens: torch.Tensor,
                 max_len: int):
         """frames (B, S_enc, D), tokens (B, S) -> (last-position logits
         (B, 1, V), cache)."""
-        return encdec.prefill(self.cfg, self.run_params,
-                              frames.to(self.device), tokens.to(self.device),
-                              max_len)
+        with activation_sharding(self.plan):
+            return encdec.prefill(self.cfg, self.run_params,
+                                  frames.to(self.device),
+                                  tokens.to(self.device), max_len)
 
     @torch.inference_mode()
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """tokens (B, 1) -> (logits (B, 1, V), cache updated in place)."""
-        return encdec.decode_step(self.cfg, self.run_params, cache,
-                                  tokens.to(self.device))
+        with activation_sharding(self.plan):
+            return encdec.decode_step(self.cfg, self.run_params, cache,
+                                      tokens.to(self.device))
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0,
                    dtype=torch.bfloat16):
-        return encdec.init_cache(self.cfg, batch, max_len, enc_len, dtype,
-                                 device=self.device)
+        with activation_sharding(self.plan):
+            return encdec.init_cache(self.cfg, batch, max_len, enc_len,
+                                     dtype, device=self.device)
 
 
 def _family(cfg: ModelConfig):
@@ -132,17 +155,23 @@ def _family(cfg: ModelConfig):
 
 
 def build(cfg: ModelConfig, params: dict | None = None, *, seed: int = 0,
-          device=None) -> Model | EncDecModel:
+          device=None, mesh=None, policy=None) -> Model | EncDecModel:
     """The model of ``cfg`` on ``device`` (a CUDA device unless the caller
     asks for the CPU). Without ``params`` the weights are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on that device."""
+    ``torch.Generator`` seeded with ``seed`` on that device. On a ``mesh``
+    of more than one rank it holds this rank's shards under ``policy``
+    (the default ``Policy()`` when None): drawn whole, layer by layer, and
+    cut as they are drawn, or cut from the whole tree ``params``."""
     fam = _family(cfg)
     dev = resolve_device(device)
+    plan = plan_for(cfg, mesh, policy)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        with torch.inference_mode():
+        with torch.inference_mode(), activation_sharding(plan):
             params = fam.init_params(cfg, gen)
-    return (EncDecModel if fam is encdec else Model)(cfg, params, dev)
+    elif plan is not None:
+        params = plan.local(params)
+    return (EncDecModel if fam is encdec else Model)(cfg, params, dev, plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +184,8 @@ class TrainModel:
 
     cfg: ModelConfig
     device: torch.device
+    #: This rank's layout on a mesh; None on one rank.
+    plan: ShardPlan | None = dataclasses.field(default=None, compare=False)
 
     def init(self, seed: int, device=None) -> dict:
         """Fresh parameters drawn from a ``torch.Generator`` seeded with
@@ -164,7 +195,7 @@ class TrainModel:
         dev = self.device if device is None else torch.device(device)
         gen = (MetaGenerator() if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
-        with torch.no_grad():
+        with torch.no_grad(), activation_sharding(self.plan):
             params = _family(self.cfg).init_params(self.cfg, gen)
         for _, _, v in _leaves(params):
             v.requires_grad_(True)
@@ -172,12 +203,18 @@ class TrainModel:
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """The scalar training loss of ``batch`` (tensors on the device;
-        the encoder-decoder's holds ``"frames"`` too)."""
-        return _family(self.cfg).loss_fn(self.cfg, params, batch)
+        the encoder-decoder's holds ``"frames"`` too). On a mesh: this
+        rank's share (``ShardPlan.loss``); call it, and differentiate it,
+        inside ``activation_sharding(self.plan)``."""
+        with activation_sharding(self.plan):
+            return _family(self.cfg).loss_fn(self.cfg, params, batch)
 
 
-def build_train(cfg: ModelConfig, device=None) -> TrainModel:
+def build_train(cfg: ModelConfig, device=None, *, mesh=None,
+                policy=None) -> TrainModel:
     """The training model of ``cfg`` on ``device`` (a CUDA device unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU), holding this rank's shards on a ``mesh``
+    of more than one rank."""
     _family(cfg)
-    return TrainModel(cfg, resolve_device(device))
+    return TrainModel(cfg, resolve_device(device),
+                      plan_for(cfg, mesh, policy))

@@ -16,7 +16,16 @@ gives the same tensors exactly without the 5-D intermediate.
 Profiler ranges name the layer's parts in a trace: ``moe.route`` (router,
 top-k, aux loss, dispatch and combine tensors), ``moe.dispatch``,
 ``moe.experts`` (the three batched expert products) and ``moe.combine``
-(a few microseconds per layer without a profiler)."""
+(a few microseconds per layer without a profiler).
+
+On a mesh (``models/parallel.py``) the tokens are routed in the global
+batch order (each rank its own whole groups, their router means averaged
+over the data axes for the aux loss; else gathered over the data axes,
+each rank's rows kept after),
+each rank runs the experts it holds (EP over the model axis) on its slice
+of the dispatch tensor, and the combine's partial sums are summed over
+the model axis; the ragged tail is added by the first rank of that
+axis alone."""
 
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from .common import ModelConfig, init_dense
+from .common import ModelConfig, current_plan, init_dense, pshard
 
 GROUP_SIZE = 1024  # tokens per dispatch group
 
@@ -108,12 +117,20 @@ def dispatch_combine(r: Routing, dtype) -> tuple[torch.Tensor, torch.Tensor]:
     return scattered(r.kept), scattered(r.gates * r.kept)
 
 
-def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, seq: bool = False):
     """x (B, S, D) -> (y (B, S, D) in the compute dtype, the GShard
-    load-balancing aux loss, a 0-d f32 tensor)."""
+    load-balancing aux loss, a 0-d f32 tensor). ``seq``: the residual
+    stream is split along the sequence (``models.common.pshard``)."""
+    plan = current_plan()
+    back, local = None, False
+    x = pshard(x, "in", seq)
+    if plan is not None:
+        x, back, local = plan.moe_tokens(x, GROUP_SIZE)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cd = cfg.compute_dtype
+    e_local = p["w1"].shape[0]
+    e0 = 0 if plan is None else plan.expert_offset(e_local)
 
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
@@ -128,8 +145,13 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
         me = r.probs.mean(dim=(0, 1))                           # (e,)
         assign = torch.zeros_like(r.probs).scatter_(2, r.expert_ids, 1.0)
         ce = assign.mean(dim=(0, 1)) / k                        # (e,)
+        if local:                    # the whole batch's means
+            me, ce = plan.row_mean(me, True), plan.row_mean(ce, False)
         aux = e * torch.sum(me * ce)
         dispatch, combine = dispatch_combine(r, cd)
+        if e_local != e:                    # this rank's experts only
+            dispatch = dispatch[:, :, e0:e0 + e_local]
+            combine = combine[:, :, e0:e0 + e_local]
     with record_function("moe.dispatch"):
         xe = torch.einsum("gsec,gsd->egcd", dispatch, xg.to(cd))
     with record_function("moe.experts"):
@@ -140,5 +162,11 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
     with record_function("moe.combine"):
         y = torch.einsum("gsec,egcd->gsd", combine, ye).reshape(-1, d)
     if y.shape[0] < t:  # the ragged tail passes through unchanged
-        y = torch.cat([y, tokens[y.shape[0]:].to(y.dtype)], dim=0)
-    return y.reshape(b, s, d).to(cd), aux.float()
+        tail = tokens[y.shape[0]:].to(y.dtype)
+        if e_local != e:
+            tail = plan.first_rank_only(tail)
+        y = torch.cat([y, tail], dim=0)
+    y = y.reshape(b, s, d).to(cd)
+    if back is not None:
+        y = pshard(back(y), "partial" if e_local != e else "whole", seq)
+    return y, aux.float()

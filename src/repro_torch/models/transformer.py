@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_decode, attn_full, init_attn_layer
-from .common import (ModelConfig, cross_entropy, init_dense, rms_norm,
+from .common import (ModelConfig, cross_entropy, current_plan, init_dense,
+                     layer_params, local_params, pshard, rms_norm,
                      stack_layers)
 from .mamba2 import init_mamba_layer, mamba_decode, mamba_full
 from .moe import init_moe_layer, moe_ffn
@@ -76,7 +77,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     params = {
         "embed": init_dense(gen, (cfg.vocab, cfg.d_model), dtype=cfg.dtype),
         "final_norm": _zeros(cfg, gen, cfg.d_model),
-        "layers": stack_layers(cfg.n_layers, lambda: _init_block(cfg, gen)),
+        "layers": stack_layers(cfg.n_layers, lambda: _init_block(cfg, gen),
+                               "layers"),
     }
     if not cfg.tie_embeddings:
         params["head"] = init_dense(gen, (cfg.d_model, cfg.vocab),
@@ -88,7 +90,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
             "norm2": _zeros(cfg, gen, cfg.d_model),
             "mlp": init_mlp_layer(cfg, gen),
         }
-    return params
+    return local_params(params)
 
 
 # ---------------------------------------------------------------- helpers
@@ -106,10 +108,14 @@ def split_layers(params: dict, n: int) -> list[dict]:
     return out
 
 
-def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
+        seq: bool = False) -> torch.Tensor:
     cd = cfg.compute_dtype
+    x = pshard(x, "in", seq)
     h = F.silu(x @ p["w1"].to(cd)) * (x @ p["w3"].to(cd))
-    return h @ p["w2"].to(cd)
+    return pshard(h @ p["w2"].to(cd),
+                  "partial" if p["w2"].shape[0] != cfg.d_ff else "whole",
+                  seq)
 
 
 def window_schedule(cfg: ModelConfig) -> list[int]:
@@ -120,46 +126,67 @@ def window_schedule(cfg: ModelConfig) -> list[int]:
     return [cfg.sliding_window] * cfg.n_layers
 
 
-def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+def seq_split(tokens: torch.Tensor) -> bool:
+    """Whether a full pass over ``tokens`` (B, S) runs with the residual
+    stream split along the sequence: under an installed plan whose policy
+    shards the sequence, where the model axis divides S."""
+    plan = current_plan()
+    return plan is not None and plan.seq_split(tokens.shape[1])
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           seq: bool = False):
+    plan = current_plan()
+    if plan is not None:
+        return plan.embed(cfg, params, tokens, seq)
     x = params["embed"][tokens].to(cfg.compute_dtype)
     return x * (cfg.d_model ** 0.5)
 
 
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor):
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
+            seq: bool = False):
+    plan = current_plan()
+    if plan is not None:
+        return plan.logits(cfg, params, x, seq)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head.to(cfg.compute_dtype)
 
 
-def _ffn(cfg, p, z):
+def _ffn(cfg, p, z, seq=False):
     """The block's MLP or MoE FFN: (y, the MoE aux loss or None)."""
     if "moe" in p:
-        return moe_ffn(cfg, p["moe"], z)
-    return mlp(cfg, p["mlp"], z), None
+        return moe_ffn(cfg, p["moe"], z, seq)
+    return mlp(cfg, p["mlp"], z, seq), None
 
 
-def _attn_block(cfg, p, x, window):
+def _attn_block(cfg, p, x, window, seq=False):
     """A dense, VLM or MoE block: (x, aux or None, (k, v))."""
+    p = layer_params(p, ("layers",))
     h, kv = attn_full(cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                      window=window)
+                      window=window, seq=seq)
     x = x + h
-    y, aux = _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
+    y, aux = _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps), seq)
     return x + y, aux, kv
 
 
-def _mamba_block(cfg, p, x, return_state=False):
+def _mamba_block(cfg, p, x, seq=False, return_state=False):
+    p = layer_params(p, ("layers",))
     h = mamba_full(cfg, p["mamba"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                   return_state=return_state)
+                   return_state=return_state, seq=seq)
     if return_state:
         return x + h[0], h[1]
     return x + h, None
 
 
-def _shared_block(cfg, shared, x):
+def _shared_block(cfg, shared, x, seq=False):
+    shared = layer_params(shared, ("shared",))
     h, kv = attn_full(cfg, shared["attn"],
-                      rms_norm(x, shared["norm1"], cfg.norm_eps), window=0)
+                      rms_norm(x, shared["norm1"], cfg.norm_eps), window=0,
+                      seq=seq)
     x = x + h
-    x = x + mlp(cfg, shared["mlp"], rms_norm(x, shared["norm2"], cfg.norm_eps))
+    x = x + mlp(cfg, shared["mlp"],
+                rms_norm(x, shared["norm2"], cfg.norm_eps), seq)
     return x, kv
 
 
@@ -168,6 +195,7 @@ def _remat(block, cfg, *args, n_out: int = 1):
     than one) with its activations recomputed in the backward pass instead
     of kept (the forward draws no random numbers, so no RNG state is
     stashed)."""
+
     def run(*a):
         out = block(cfg, *a)
         return out[0] if n_out == 1 else out[:n_out]
@@ -179,7 +207,8 @@ def _remat(block, cfg, *args, n_out: int = 1):
 # ------------------------------------------------------------ full forward
 def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                  collect_cache: bool = False, remat: bool = False):
-    """Full-sequence forward: (hidden (B, S, D), the MoE aux loss summed
+    """Full-sequence forward: (hidden (B, S, D), split along the sequence
+    where :func:`seq_split` says, the MoE aux loss summed
     over the layers (a 0-d f32 tensor, zero for the other families),
     caches or None).
 
@@ -192,7 +221,8 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     remat = remat and torch.is_grad_enabled()
     if remat and collect_cache:
         raise ValueError("remat recomputes layers and collects no cache")
-    x = _embed(cfg, params, tokens)
+    seq = seq_split(tokens)
+    x = _embed(cfg, params, tokens, seq)
     layers = split_layers(params["layers"], cfg.n_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -200,9 +230,9 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         ks, vs = [], []
         for p, w in zip(layers, window_schedule(cfg)):
             if remat:
-                x, a = _remat(_attn_block, cfg, p, x, w, n_out=2)
+                x, a = _remat(_attn_block, cfg, p, x, w, seq, n_out=2)
             else:
-                x, a, (k, v) = _attn_block(cfg, p, x, w)
+                x, a, (k, v) = _attn_block(cfg, p, x, w, seq)
                 if collect_cache:
                     ks.append(k)
                     vs.append(v)
@@ -214,17 +244,17 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     convs, ssms, ks, vs = [], [], [], []
     for i, p in enumerate(layers):
         if remat:
-            x = _remat(_mamba_block, cfg, p, x)
+            x = _remat(_mamba_block, cfg, p, x, seq)
         else:
-            x, st = _mamba_block(cfg, p, x, collect_cache)
+            x, st = _mamba_block(cfg, p, x, seq, collect_cache)
             if collect_cache:
                 convs.append(st["conv"])
                 ssms.append(st["ssm"])
         if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
             if remat:
-                x = _remat(_shared_block, cfg, params["shared"], x)
+                x = _remat(_shared_block, cfg, params["shared"], x, seq)
                 continue
-            x, (k, v) = _shared_block(cfg, params["shared"], x)
+            x, (k, v) = _shared_block(cfg, params["shared"], x, seq)
             if collect_cache:
                 ks.append(k)
                 vs.append(v)
@@ -243,6 +273,11 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     times the MoE load-balancing loss (zero for the other families). The
     layers are recomputed in the backward pass when ``cfg.remat``."""
     x, aux, _ = forward_full(cfg, params, batch["tokens"], remat=cfg.remat)
+    plan = current_plan()
+    if plan is not None:
+        logits = _logits(cfg, params, x, seq_split(batch["tokens"]))
+        return plan.loss(logits, batch["targets"],
+                         batch.get("mask"), aux, AUX_LOSS_COEF)
     ce = cross_entropy(_logits(cfg, params, x), batch["targets"],
                        batch.get("mask"))
     return ce + AUX_LOSS_COEF * aux
@@ -255,8 +290,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``pos`` a Python int."""
     check_family(cfg)
     hd = cfg.resolved_head_dim
-    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,  # noqa: E731
-                                                     device=device)
+    plan = current_plan()
+
+    def z(*shape, dt=torch.float32):
+        if plan is not None:
+            shape = plan.cache_local_shape(shape)
+        return torch.zeros(shape, dtype=dt, device=device)
+
     if cfg.family in ATTN_FAMILIES:
         kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
         return {"k": z(*kv, dt=dtype), "v": z(*kv, dt=dtype), "pos": 0}
@@ -283,13 +323,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
     if cfg.family in ATTN_FAMILIES:
         for i, (p, w) in enumerate(zip(layers, window_schedule(cfg))):
+            p = layer_params(p, ("layers",))
             x = x + attn_decode(cfg, p["attn"],
                                 rms_norm(x, p["norm1"], cfg.norm_eps),
                                 cache["k"][i], cache["v"][i], pos, window=w)
             x = x + _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))[0]
     else:
         shared = params.get("shared")
+        if shared is not None:
+            shared = layer_params(shared, ("shared",))
         for i, p in enumerate(layers):
+            p = layer_params(p, ("layers",))
             y, conv, ssm = mamba_decode(
                 cfg, p["mamba"], rms_norm(x, p["norm1"], cfg.norm_eps),
                 cache["conv"][i], cache["ssm"][i])
@@ -322,8 +366,10 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     else:
         cache = init_cache(cfg, b, max_len, device=dev)
         states = collected if cfg.family == "ssm" else collected[2]
+        plan = current_plan()
         cache["conv"].copy_(states["conv"])
-        cache["ssm"].copy_(states["ssm"])
+        cache["ssm"].copy_(states["ssm"] if plan is None
+                           else plan.cache_slice(states["ssm"]))
         if cfg.family == "hybrid":
             k, v = collected[:2]
     if cfg.family != "ssm":

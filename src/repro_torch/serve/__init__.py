@@ -1,4 +1,4 @@
-"""Batched greedy serving on one device."""
+"""Batched greedy serving on one device or a mesh of them."""
 
 from .engine import Engine, ServeConfig
 

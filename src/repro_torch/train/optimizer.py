@@ -66,20 +66,29 @@ def _chunks(t: torch.Tensor):
     return t.view(-1).split(CHUNK)
 
 
+def sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """A leaf's sum of squares in f32, chunk by chunk."""
+    return sum(torch.sum(c * c) for c in _chunks(g.float()))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves of each leaf's sum of squares (f32)."""
     total = 0.0
     for g in tree_leaves(tree):
-        total = total + sum(torch.sum(c * c) for c in _chunks(g.float()))
+        total = total + sum_sq(g)
     return torch.sqrt(torch.as_tensor(total))
 
 
 @torch.no_grad()
-def apply(cfg: OptConfig, params: dict, grads: dict, state: dict):
+def apply(cfg: OptConfig, params: dict, grads: dict, state: dict,
+          gnorm: torch.Tensor | None = None):
     """One AdamW step with global-norm clipping on f32 leaves. Updates the
     parameters and ``state``'s moments in place; returns (params, state,
-    {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    {"grad_norm", "lr"}). ``gnorm`` is the gradients' global norm where
+    the caller reckoned it (over a mesh's shards); else it is the norm of
+    ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     lr = schedule(cfg, step)

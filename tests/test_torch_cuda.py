@@ -337,6 +337,8 @@ def test_ssd_kernel_against_plain(dev, b, s, h, p, n):
 def test_smoke_hybrid_generates_the_same_tokens_on_card_and_cpu(dev):
     from repro_torch.configs import get_config
     from repro_torch.models import build
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import Engine, ServeConfig
 
     cfg = get_config("zamba2-2.7b", smoke=True).scaled(
@@ -347,12 +349,14 @@ def test_smoke_hybrid_generates_the_same_tokens_on_card_and_cpu(dev):
         1, cfg.vocab, size=(2, 70)).astype(np.int32)
     scfg = ServeConfig(max_new_tokens=6, max_len=96)
     before = ops.launches()
-    out = Engine(gpu, scfg).generate(prompts)
+    out = Engine(gpu, make_host_mesh(), Policy(), None, scfg).generate(
+        prompts)
     after = ops.launches()
     assert after["ssd"] - before["ssd"] == cfg.n_layers
     assert (after["flash_attention"] - before["flash_attention"]
             == cfg.n_layers // cfg.attn_every)
-    np.testing.assert_array_equal(out, Engine(cpu, scfg).generate(prompts))
+    np.testing.assert_array_equal(out, Engine(
+        cpu, make_host_mesh(), Policy(), None, scfg).generate(prompts))
 
 
 def _to_cpu(tree):
@@ -616,6 +620,7 @@ def test_smoke_train_steps_on_card_match_cpu(dev, arch):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_train
     from repro_torch.train import OptConfig, make_train_fns
 
@@ -623,12 +628,14 @@ def test_smoke_train_steps_on_card_match_cpu(dev, arch):
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
                                   global_batch=4))
     opt = OptConfig(lr=1e-2, warmup_steps=2)
-    init, _ = make_train_fns(build_train(cfg, device="cpu"), Policy(), opt)
+    mesh = make_host_mesh()
+    init, _ = make_train_fns(build_train(cfg, device="cpu"), mesh, Policy(),
+                             opt)
     state0 = init(0)
     losses = {}
     for device in ("cpu", dev):
-        _, step = make_train_fns(build_train(cfg, device=device), Policy(),
-                                 opt)
+        _, step = make_train_fns(build_train(cfg, device=device), mesh,
+                                 Policy(), opt)
         state = tree_unflatten(state0, [t.detach().to(device, copy=True)
                                         for t in tree_leaves(state0)])
         for p in tree_leaves(state["params"]):
@@ -644,6 +651,8 @@ def test_smoke_generates_the_same_tokens_on_card_and_cpu(dev, arch):
     padded SSD tail for mamba2 (chunk 64)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import Engine, ServeConfig
 
     cfg = get_config(arch, smoke=True).scaled(compute_dtype=torch.float32)
@@ -653,13 +662,15 @@ def test_smoke_generates_the_same_tokens_on_card_and_cpu(dev, arch):
         1, cfg.vocab, size=(2, 70)).astype(np.int32)
     scfg = ServeConfig(max_new_tokens=6, max_len=96)
     before = ops.launches()
-    out = Engine(gpu, scfg).generate(prompts)
+    out = Engine(gpu, make_host_mesh(), Policy(), None, scfg).generate(
+        prompts)
     after = ops.launches()
     ssm = cfg.family == "ssm"
     assert after["ssd"] - before["ssd"] == (cfg.n_layers if ssm else 0)
     assert (after["flash_attention"] - before["flash_attention"]
             == (0 if ssm else cfg.n_layers))
-    np.testing.assert_array_equal(out, Engine(cpu, scfg).generate(prompts))
+    np.testing.assert_array_equal(out, Engine(
+        cpu, make_host_mesh(), Policy(), None, scfg).generate(prompts))
 
 
 @contextlib.contextmanager

@@ -38,6 +38,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.dist.worker, repro_torch.noc.server.client\n"
         "import repro_torch.data, repro_torch.train, repro_torch.launch.train\n"
         "import repro_torch.dist.sharding, repro_torch.train.train_step\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.ranks\n"
+        "import repro_torch.dist.collectives, repro_torch.models.parallel\n"
+        "import repro_torch.launch.memory, repro_torch.train.grad_compress\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -55,7 +58,9 @@ def test_no_source_of_the_port_imports_jax_or_repro():
     assert ROOT / "src" / "repro_torch" / "models" / "transformer.py" in files
     for mod in ("train/trainer.py", "train/train_step.py",
                 "train/optimizer.py", "train/grad_compress.py",
-                "data/pipeline.py", "dist/sharding.py", "launch/train.py"):
+                "data/pipeline.py", "dist/sharding.py", "launch/train.py",
+                "launch/mesh.py", "launch/ranks.py", "dist/collectives.py",
+                "models/parallel.py", "launch/memory.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
@@ -95,6 +100,8 @@ def test_serving_entry_points_default_to_cuda():
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main
     from repro_torch.models import build
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import Engine, ServeConfig
 
     cfg = get_config("zamba2-2.7b", smoke=True).scaled(
@@ -105,13 +112,15 @@ def test_serving_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build(cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            Engine(build(cfg), ServeConfig())
+            Engine(build(cfg), make_host_mesh(), Policy(), None,
+                   ServeConfig())
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(["--arch", "zamba2-2.7b", "--smoke"])
     model = build(cfg, device="cpu")
     assert model.device.type == "cpu"
     assert all(b.device.type == "cpu" for b in model.buffers())
-    out = Engine(model, ServeConfig(max_new_tokens=2)).generate(
+    out = Engine(model, make_host_mesh(), Policy(), None,
+                 ServeConfig(max_new_tokens=2)).generate(
         np.ones((1, 4), np.int32))
     assert out.shape == (1, 2)
 
@@ -120,6 +129,7 @@ def test_training_entry_points_default_to_cuda(tmp_path):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import main
     from repro_torch.models import build_train
     from repro_torch.train import OptConfig, TrainConfig, Trainer
@@ -134,12 +144,14 @@ def test_training_entry_points_default_to_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_train(cfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            Trainer(build_train(cfg), Policy(), OptConfig(), data, tcfg)
+            Trainer(build_train(cfg), make_host_mesh(), Policy(),
+                    OptConfig(), data, tcfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(["--arch", "yi-6b", "--smoke", "--steps", "1",
                   "--ckpt-dir", str(tmp_path / "l")])
     model = build_train(cfg, device="cpu")
-    out = Trainer(model, Policy(), OptConfig(), data, tcfg).run()
+    out = Trainer(model, make_host_mesh(), Policy(), OptConfig(), data,
+                  tcfg).run()
     assert out["final_step"] == 1
     assert all(p.device.type == "cpu" for p in
                out["state"]["params"]["layers"]["attn"].values())

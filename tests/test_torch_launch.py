@@ -173,3 +173,91 @@ def test_serve_launcher_refuses_before_allocating(monkeypatch):
     with pytest.raises(SystemExit, match="decoder-only"):
         launch_serve.main(["--arch", "whisper-base", "--dtype", "bfloat16",
                            "--device", "cpu"])
+
+
+# ------------------------------------------------- the multi-card launchers
+def test_distributed_without_the_launchers_environment_raises(monkeypatch,
+                                                              tmp_path):
+    from repro_torch.launch.train import main
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="launcher's environment"):
+        main(["--arch", ARCH, "--smoke", "--device", "cpu", "--distributed",
+              "--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+def test_mistral_bf16_is_refused_on_one_card_and_admitted_on_four():
+    from repro_torch.dist.sharding import Policy, serve_policy
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = get_config("mistral-large-123b").scaled(dtype=torch.bfloat16)
+    policy = serve_policy(False)
+    one = Mesh(("data", "model"), (1, 1))
+    four = Mesh(("data", "model"), (4, 1))
+    # The launcher's defaults: 4 prompts of 16, 16 new tokens.
+    need1 = memory.serve_bytes(cfg, 4, 40, one, policy)
+    need4 = memory.serve_bytes(cfg, 4, 40, four, policy)
+    assert need1 == memory.serve_bytes(cfg, 4, 40)
+    with pytest.raises(SystemExit, match="mistral-large-123b does not fit"):
+        memory.refuse_unless_fits(cfg, need1, CARD_FREE)
+    memory.refuse_unless_fits(cfg, need4, CARD_FREE)
+    # 61.3 GB of weight shards, a gathered layer of 1.38 B parameters in
+    # bf16 (wq, wk, wv, wo and the MLP), and one row's KV cache.
+    shards = memory.local_param_count(cfg, four, policy) * 2
+    assert round(shards / 1e9, 1) == 61.3
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+             + 3 * d * f + 2 * d)
+    assert memory.gathered_count(cfg, four, policy) == layer
+    assert round(layer / 1e9, 2) == 1.38
+    kv = 2 * cfg.n_layers * 1 * 40 * cfg.n_kv_heads * hd * 2
+    assert need4 == shards + 2 * layer + kv
+    # Training state over four ranks: parameters, gradients, f32 moments.
+    n4 = memory.local_param_count(cfg, four, Policy())
+    assert memory.train_bytes(cfg, four, Policy()) == (
+        2 * n4 * 2 + 2 * n4 * 4 + 2 * layer)
+
+
+def test_tp_and_seq_shard_reach_the_policy_as_in_the_reference(
+        monkeypatch, tmp_path):
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    seen = {}
+
+    class Recording(launch_serve.Engine):
+        def __init__(self, model, mesh, policy, params, cfg):
+            seen.setdefault("serve", []).append(policy)
+            super().__init__(model, mesh, policy, params, cfg)
+
+    class RecordingTrainer(launch_train.Trainer):
+        def __init__(self, model, mesh, policy, *args):
+            seen.setdefault("train", []).append(policy)
+            super().__init__(model, mesh, policy, *args)
+
+    monkeypatch.setattr(launch_serve, "Engine", Recording)
+    monkeypatch.setattr(launch_train, "Trainer", RecordingTrainer)
+    common = ["--arch", ARCH, "--smoke", "--device", "cpu"]
+    for tp in ([], ["--tp"]):
+        assert launch_serve.main(common + ["--batch", "1", "--prompt-len",
+                                           "4", "--new", "2"] + tp) == 0
+    for flags in ([], ["--seq-shard", "--grad-compress",
+                       "--microbatches", "2"]):
+        assert launch_train.main(common + ["--steps", "1", "--seq-len", "8",
+                                           "--global-batch", "2",
+                                           "--ckpt-dir",
+                                           str(tmp_path / str(len(flags)))]
+                                 + flags) == 0
+    # The reference launchers' policies (src/repro/launch/serve.py:49-50,
+    # src/repro/launch/train.py:62-67).
+    want_serve = [shd.Policy().with_logical(heads=(), kv_heads=(),
+                                            heads_flat=(), vocab=(), mlp=()),
+                  shd.Policy()]
+    want_train = [shd.Policy(microbatches=1, grad_compress=False),
+                  shd.Policy(microbatches=2, grad_compress=True
+                             ).with_logical(seq=("model",))]
+    for got, want in zip(seen["serve"] + seen["train"],
+                         want_serve + want_train):
+        assert (got.microbatches, got.grad_compress, got.fsdp_axes,
+                got.logical) == (want.microbatches, want.grad_compress,
+                                 want.fsdp_axes, want.logical)

@@ -23,6 +23,8 @@ from repro.serve import Engine as RefEngine
 from repro.serve import ServeConfig as RefServeConfig
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.convert import params_from_jax
+from repro_torch.dist.sharding import Policy
+from repro_torch.launch.mesh import make_host_mesh as host_mesh
 from repro_torch.models import build
 from repro_torch.serve import Engine, ServeConfig
 
@@ -112,7 +114,7 @@ def test_engine_generates_the_references_tokens(arch):
     scfg = dict(max_new_tokens=6, max_len=MAX_LEN)
     reng = RefEngine(rmodel, make_host_mesh(), shd.Policy(), rparams,
                      RefServeConfig(**scfg))
-    eng = Engine(model, ServeConfig(**scfg))
+    eng = Engine(model, host_mesh(), Policy(), None, ServeConfig(**scfg))
     got = eng.generate(tokens)
     assert got.dtype == np.int32 and got.shape == (BATCH, 6)
     np.testing.assert_array_equal(got, reng.generate(tokens))

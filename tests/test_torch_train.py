@@ -27,6 +27,7 @@ from repro_torch.ckpt.checkpoint import tree_leaves
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.dist.sharding import Policy
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_train
 from repro_torch.train import OptConfig, TrainConfig, Trainer, make_train_fns
 from repro_torch.train import grad_compress, optimizer
@@ -154,7 +155,7 @@ def _small_setup(tmp_path, steps=24, grad_compress_on=False):
                     weight_decay=0.0)
     tcfg = TrainConfig(steps=steps, ckpt_dir=str(tmp_path), ckpt_every=8,
                        seed=0)
-    return Trainer(model, policy, opt, data, tcfg)
+    return Trainer(model, make_host_mesh(), policy, opt, data, tcfg)
 
 
 def test_trainer_loss_decreases(tmp_path):
@@ -221,7 +222,8 @@ def test_every_ported_family_is_listed():
 @pytest.mark.parametrize("arch", TRAINABLE)
 def test_one_train_step_per_smoke_arch(arch):
     cfg = get_config(arch, smoke=True)            # bf16 compute, remat on
-    init, step = make_train_fns(build_train(cfg, device="cpu"), Policy(),
+    init, step = make_train_fns(build_train(cfg, device="cpu"),
+                                make_host_mesh(), Policy(),
                                 OptConfig(warmup_steps=1))
     state = init(0)
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,

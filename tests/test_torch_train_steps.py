@@ -25,6 +25,7 @@ from repro_torch.ckpt.checkpoint import tree_leaves
 from repro_torch.configs import get_config
 from repro_torch.convert import train_state_from_jax
 from repro_torch.dist.sharding import Policy
+from repro_torch.launch.mesh import make_host_mesh as host_mesh
 from repro_torch.models import build_train
 from repro_torch.train import OptConfig, make_train_fns
 
@@ -64,7 +65,7 @@ def test_steps_match_the_reference(arch, microbatches, compress, steps):
     assert ("err" in state) == compress
     assert int(state["opt"]["step"]) == 0
     assert all(p.requires_grad for p in tree_leaves(state["params"]))
-    _, step = make_train_fns(build_train(cfg, device="cpu"),
+    _, step = make_train_fns(build_train(cfg, device="cpu"), host_mesh(),
                              Policy(microbatches, compress), OptConfig(**opt))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
                                   global_batch=4))
@@ -89,8 +90,8 @@ def test_steps_match_the_reference(arch, microbatches, compress, steps):
 
 def test_a_batch_that_does_not_split_raises():
     cfg = get_config("yi-6b", smoke=True).scaled(compute_dtype=torch.float32)
-    init, step = make_train_fns(build_train(cfg, device="cpu"), Policy(3),
-                                OptConfig())
+    init, step = make_train_fns(build_train(cfg, device="cpu"), host_mesh(),
+                                Policy(3), OptConfig())
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=8,
                                    global_batch=4)).batch(0)
     with pytest.raises(ValueError, match="microbatches"):
