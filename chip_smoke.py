@@ -153,11 +153,27 @@ each raising on failure:
      bf16 on (4, 1) (prefill and decode ms, host syncs per decode step,
      peak GB a card) and of two zamba2-2.7b training steps against one
      card's with four microbatches. The ``kernels`` line counts (a)'s and
-     (b)'s launches.
+     (b)'s launches;
+ 17. the pod tools (``launch.{constants,hlo,dryrun,roofline,perf}``): (a)
+     the card's name and power limit, its peaks from ``launch.constants``
+     by the name the card reports, its ``total_memory`` within 1% of the
+     table's HBM bytes; (b) zamba2-2.7b's prefill at phase 9's 8 x 512 on
+     the (1, 1) host mesh traced on the meta device, then run on the card
+     under the same counter: op counts, GEMM FLOPs by dtype and the K5/K6
+     records equal, bytes within 1%, the meta trace's peak live bytes
+     against the rise of ``max_memory_allocated``, and the prefill's time
+     without the counter against its roofline bound; (c) phase 16 (b)'s
+     yi-6b --tp on (1, 2): each rank's collective log (kind, axis, group,
+     dtype, shape) of a prefill and a decode step traced on meta equal to
+     that rank's over gloo; (d) the perf driver's baseline cells A0, B0
+     and C0 on the pod16x16 mesh at full width (dry run status and the
+     three roofline terms), in a subprocess beside (a)-(c). The ``kernels``
+     line counts (b)'s and (c)'s launches.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. ``--only-phase16`` builds the kernels and runs phase
-16 alone (with ``--cards 4``, (c) too).
+16 alone (with ``--cards 4``, (c) too); ``--only-phase17`` runs phase 17
+alone.
 
     python3 chip_smoke.py --compare-kernels DIR
 
@@ -3349,6 +3365,340 @@ def phase16(torch, ops, dev, card: str, cards: int, root: Path,
     return launched
 
 
+# ------------------------------------------------------------------ phase 17
+#: Phase 17: the pod tools (``launch.{constants,hlo,dryrun,roofline,
+#: perf}``). (b) traces phase 9's prefill on the meta device and runs it on
+#: the card under the same counter; (c) logs phase 16 (b)'s yi-6b --tp
+#: collectives on meta and on two gloo ranks; (d) runs the perf driver on
+#: the three baseline cells of the pod (in a subprocess started first, so
+#: it runs beside (a)-(c)).
+POD_CELLS = ("A0_baseline", "B0_baseline", "C0_baseline")
+#: The card's bytes (``total_memory``) against the peaks table's HBM bytes.
+POD_HBM_RTOL = 0.01
+#: The counter's bytes on meta against on the card.
+POD_BYTES_RTOL = 0.01
+#: The meta trace's peak live bytes against the rise of the card's
+#: ``max_memory_allocated`` over the same prefill: -0.13% on the first
+#: run on an H100 (the allocator's 512-byte rounding); the limit leaves
+#: that reading a factor of ~15.
+POD_PEAK_RTOL = 0.02
+POD_PERF_TIMEOUT_S = 600
+
+
+def pod_perf_start(root: Path, card_name: str):
+    """(d), started: ``python -m repro_torch.launch.perf --run`` of
+    POD_CELLS on the pod16x16 mesh, in a subprocess (its log:
+    ``experiments/h100/perf_log.json`` of this checkout)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.perf", "--run",
+         *POD_CELLS, "--card", card_name],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=root)
+
+
+def pod_perf_finish(proc, root: Path, t0: float) -> None:
+    """(d), collected: every cell's dry run ``ok`` and its three terms."""
+    try:
+        out, err = proc.communicate(timeout=POD_PERF_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"(d) the perf driver failed:\n"
+          f"{out[-2000:]}{err[-3000:]}")
+    log = root / "experiments" / "h100" / "perf_log.json"
+    recs = {r["experiment"]: r for r in json.loads(log.read_text())}
+    for name in POD_CELLS:
+        r = recs[name]
+        check(r["status"] == "ok", f"(d) {name}: dry run {r['status']}")
+        print(f"(d) {name} {r['arch']} x {r['shape']} on pod16x16: "
+              f"compute {r['compute_s']:.4e} s, memory {r['memory_s']:.4e} "
+              f"s, collective {r['collective_s']:.4e} s; dominant "
+              f"{r['dominant']}, useful {r['useful_ratio']:.3f}, roofline "
+              f"fraction {r['roofline_fraction']:.4f}; temp "
+              f"{r['temp_bytes'] / 1e9:.2f} GB a card; status {r['status']}")
+    print(f"(d) the perf driver's three cells: {time.perf_counter() - t0:.1f}"
+          f" s in a subprocess beside (a)-(c)")
+
+
+def pod_card(torch, card: str):
+    """(a): the card's peaks, by the name the card reports."""
+    from repro_torch.launch.constants import peaks
+
+    name = torch.cuda.get_device_name(0)
+    p = peaks(name)
+    total = torch.cuda.get_device_properties(0).total_memory
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(f"(a) nvidia-smi memory.total: {smi.strip()}")
+    print(f"(a) card: {card}; peaks of {p.name}: bf16 {p.flops['bf16']:.4g}, "
+          f"tf32 {p.flops['tf32']:.4g}, f32 {p.flops['f32']:.4g} FLOP/s, HBM "
+          f"{p.hbm_bw:.4g} B/s, {p.hbm_bytes} B; NVLink {p.nvlink_bw:.4g} "
+          f"B/s, {p.cards_per_node} cards a node, {p.off_node_bw:.4g} B/s "
+          f"off it; total_memory {total} B "
+          f"({total / p.hbm_bytes - 1:+.4%} of the table's)")
+    check(abs(total - p.hbm_bytes) <= POD_HBM_RTOL * p.hbm_bytes,
+          f"(a) total_memory {total} B is not within {POD_HBM_RTOL:.0%} of "
+          f"the peaks table's {p.hbm_bytes} B")
+    return p
+
+
+def _op_diff(a: dict, b: dict) -> str:
+    keys = sorted(set(a) | set(b))
+    return ", ".join(f"{k}: meta {a.get(k, 0)} card {b.get(k, 0)}"
+                     for k in keys if a.get(k, 0) != b.get(k, 0))
+
+
+def pod_trace_vs_card(torch, ops, dev, peaks) -> dict:
+    """(b): zamba2-2.7b's prefill at phase 9's 8 x 512 on the (1, 1) host
+    mesh, traced on meta, then run on the card under the same counter:
+    GEMM FLOPs by dtype, K5/K6 records and op counts equal, bytes within
+    POD_BYTES_RTOL, the meta peak against the card's allocator; the time
+    without the counter against the roofline bound. Returns the counted
+    run's K5/K6 launches."""
+    from repro_torch.configs import TOKEN_DTYPE, get_config
+    from repro_torch.dist.sharding import Policy
+    from repro_torch.launch.dryrun import Counter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train.train_step import make_prefill_fn
+
+    cfg = get_config(MESH_ARCH)
+    mesh, policy = make_host_mesh(), Policy()
+    shape = (SERVE_BATCH, SERVE_PROMPT)
+    t0 = time.perf_counter()
+    fn = make_prefill_fn(build(cfg, device="meta", mesh=mesh, policy=policy),
+                         mesh, policy)
+    batch = {"tokens": torch.empty(shape, dtype=TOKEN_DTYPE, device="meta")}
+    with Counter() as meta:
+        fn(batch)
+    meta_s = time.perf_counter() - t0
+    del fn
+
+    release(torch)
+    fn = make_prefill_fn(build(cfg, seed=0, device=dev, mesh=mesh,
+                               policy=policy), mesh, policy)
+    tokens = torch.randint(1, cfg.vocab, shape, dtype=TOKEN_DTYPE,
+                           generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    batch = {"tokens": tokens}
+    fn(batch)                                 # warm: cuBLAS, the kernels
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with Counter() as card:
+        fn(batch)
+        torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    launched = _llm_launches(ops)
+
+    m_ops, c_ops = meta.op_counts(), card.op_counts()
+    check(m_ops == c_ops, f"(b) op counts differ: {_op_diff(m_ops, c_ops)}")
+    check(meta.flops == card.flops,
+          f"(b) GEMM FLOPs by dtype: meta {meta.flops}, card {card.flops}")
+    check(meta.kernels == card.kernels,
+          f"(b) kernel records differ: meta {meta.kernel_summary()}, card "
+          f"{card.kernel_summary()}")
+    check(abs(meta.bytes - card.bytes) <= POD_BYTES_RTOL * card.bytes,
+          f"(b) bytes: meta {meta.bytes}, card {card.bytes}")
+    k = meta.kernel_summary()
+    check(k["flash_attention"]["calls"] == launched["flash_attention"]
+          and k["ssd"]["calls"] == launched["ssd"],
+          f"(b) kernel records {k} against launches {launched}")
+    check(abs(meta.peak - rise) <= POD_PEAK_RTOL * rise,
+          f"(b) meta peak {meta.peak} B against the card's rise of "
+          f"max_memory_allocated {rise} B: beyond {POD_PEAK_RTOL:.0%}")
+    compute = sum(f / peaks.flops_for(d)
+                  for d, f in meta.flops_by_dtype().items())
+    memory = meta.total_bytes() / peaks.hbm_bw
+    bound = max(compute, memory)
+    ms = statistics.median(times) * 1e3
+    print(f"(b) {MESH_ARCH} prefill {shape[0]} x {shape[1]} on (1, 1): "
+          f"traced on meta in {meta_s:.1f} s, {len(meta.ops)} ops equal to "
+          f"the card's; GEMM FLOPs {json.dumps(meta.flops)}; kernels "
+          f"{json.dumps(k)}; bytes meta {meta.bytes} card {card.bytes}; "
+          f"live peak meta {meta.peak} B, card rise of max_memory_allocated "
+          f"{rise} B ({meta.peak / rise - 1:+.2%}); launches "
+          f"{json.dumps(launched)}")
+    print(f"(b) roofline: compute {compute * 1e3:.3f} ms, memory "
+          f"{memory * 1e3:.3f} ms (bound {bound * 1e3:.3f} ms by "
+          f"{'compute' if compute >= memory else 'memory'}); measured "
+          f"without the counter {ms:.2f} ms (runs "
+          f"{[round(t * 1e3, 2) for t in times]}): {bound * 1e3 / ms:.3f} "
+          f"of the bound")
+    return launched
+
+
+def _yi_tp_collectives(torch, dev, mesh) -> list:
+    """Phase 16 (b)'s yi-6b --tp on ``mesh``: a prefill of SERVE_BATCH x
+    SERVE_PROMPT tokens and one decode step, on ``dev`` (meta on an
+    abstract mesh), under the pod tools' counter: its collective records
+    as tuples."""
+    from repro_torch.configs import TOKEN_DTYPE
+    from repro_torch.dist.sharding import serve_policy
+    from repro_torch.launch.dryrun import Counter
+    from repro_torch.models import build
+    from repro_torch.train.train_step import make_decode_fn, make_prefill_fn
+
+    cfg = mesh_configs(torch)[MESH_DENSE]
+    policy = serve_policy(True)
+    model = build(cfg, seed=0, device=dev, mesh=mesh, policy=policy)
+    shape = (SERVE_BATCH, SERVE_PROMPT)
+    if dev.type == "meta":
+        tokens = torch.empty(shape, dtype=TOKEN_DTYPE, device=dev)
+        token = torch.empty((SERVE_BATCH, 1), dtype=TOKEN_DTYPE, device=dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tokens = torch.randint(1, cfg.vocab, shape, dtype=TOKEN_DTYPE,
+                               generator=gen, device=dev)
+        token = tokens[:, -1:].contiguous()
+    prefill = make_prefill_fn(model, mesh, policy)
+    decode = make_decode_fn(model, mesh, policy)
+    with Counter() as counter:
+        _, cache = prefill({"tokens": tokens})
+        decode(cache, token)
+    return [(r.kind, r.axis, r.group, str(r.dtype), r.shape)
+            for r in counter.collectives.records]
+
+
+def pod_rank_collectives(rank, world, root):
+    """(c), in each of two ranks sharing ``cuda:0`` over gloo: the
+    collective log of phase 16 (b)'s yi-6b --tp on (1, 2), and the K5/K6
+    launches."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+
+    torch.cuda.set_device(0)
+    mesh = Mesh.distributed((1, 2), ("data", "model"), gloo_on_cuda=True)
+    ops.reset_launches()
+    log = _yi_tp_collectives(torch, torch.device("cuda", 0), mesh)
+    return {"log": log, "launches": _llm_launches(ops)}
+
+
+def pod_collectives_vs_ranks(torch, root) -> dict:
+    """(c): the meta trace's collective log of each rank of (1, 2) against
+    that rank's real run over gloo, record for record. Returns the ranks'
+    K5/K6 launches summed."""
+    import tempfile
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.ranks import spawn_ranks
+
+    want = [_yi_tp_collectives(torch, torch.device("meta"),
+                               Mesh(("data", "model"), (1, 2), (0, r)))
+            for r in range(2)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        got = spawn_ranks(pod_rank_collectives, 2, (str(root),),
+                          backend="gloo", store_dir=d,
+                          timeout=RANKS_TIMEOUT_S)
+    launched = {k: 0 for k in LLM_KERNELS}
+    for r, (w, g) in enumerate(zip(want, got)):
+        first = next((i for i, (a, b) in enumerate(zip(w, g["log"]))
+                      if a != b), None)
+        check(w == g["log"], f"(c) rank {r}: meta log of {len(w)} records, "
+              f"the card's {len(g['log'])}; first difference at "
+              f"{first}: {w[first] if first is not None else None} against "
+              f"{g['log'][first] if first is not None else None}")
+        for k in LLM_KERNELS:
+            launched[k] += g["launches"].get(k, 0)
+    kinds = {}
+    for rec in want[0]:
+        kinds[rec[0]] = kinds.get(rec[0], 0) + 1
+    print(f"(c) {MESH_DENSE} --tp on (1, 2), prefill {SERVE_BATCH} x "
+          f"{SERVE_PROMPT} and one decode step: each rank's collective log "
+          f"({len(want[0])} records: {json.dumps(kinds)}) equal on meta and "
+          f"over gloo, kind, axis, group, dtype and shape; launches "
+          f"{json.dumps(launched)}; {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def pod_fsdp_decode(torch, peaks) -> None:
+    """(d), beside the perf cells: phase 16 (c)'s mistral-large-123b decode
+    step (the serve launcher's defaults: bf16, 4 rows, a cache of 40, the
+    policy without --tp, FSDP over data) traced on the meta device for a
+    rank of the (4, 1) mesh: the bytes its gathers move a card a step and
+    the three roofline terms, the data axis priced at NVLink."""
+    from repro_torch.configs import TOKEN_DTYPE, get_config
+    from repro_torch.dist.sharding import serve_policy
+    from repro_torch.launch import hlo
+    from repro_torch.launch.dryrun import Counter
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.roofline import axis_links
+    from repro_torch.models import build
+    from repro_torch.models.common import activation_sharding
+    from repro_torch.train.train_step import make_decode_fn
+
+    cfg = get_config(TOO_BIG_ARCH).scaled(dtype=torch.bfloat16)
+    mesh, policy = Mesh(("data", "model"), (4, 1)), serve_policy(False)
+    batch, max_len = 4, 16 + 16 + 8
+    t0 = time.perf_counter()
+    model = build(cfg, device="meta", mesh=mesh, policy=policy)
+    with activation_sharding(model.plan):
+        cache = model.init_cache(batch // 4, max_len)
+    decode = make_decode_fn(model, mesh, policy)
+    with Counter() as c:
+        decode(cache, torch.empty((batch, 1), dtype=TOKEN_DTYPE,
+                                  device="meta"))
+    coll = hlo.parse_collectives(c.collectives)
+    links = axis_links(mesh, peaks)
+    wire = hlo.wire_by_axis(c.collectives)
+    collective = sum(w / links[a] for a, w in wire.items())
+    compute = sum(f / peaks.flops_for(d)
+                  for d, f in c.flops_by_dtype().items())
+    memory = c.total_bytes() / peaks.hbm_bw
+    ag = coll["all-gather"]
+    print(f"(d) {TOO_BIG_ARCH} bf16 decode step on (4, 1), FSDP over data "
+          f"(phase 16 (c)'s serve launcher): {ag['count']} all-gathers, "
+          f"{ag['result_bytes'] / 1e9:.3f} GB gathered a card a step "
+          f"({hlo.wire_bytes(coll) / 1e9:.3f} GB on the wire by the "
+          f"reference's rules); data axis on "
+          f"{'NVLink' if links['data'] == peaks.nvlink_bw else 'the network'}"
+          f" at {links['data'] / 1e9:.0f} GB/s: collective "
+          f"{collective * 1e3:.1f} ms, memory {memory * 1e3:.1f} ms, compute "
+          f"{compute * 1e3:.3f} ms; traced in {time.perf_counter() - t0:.1f} s")
+    check(ag["count"] > 0 and collective > 0, "(d) no gathers traced")
+
+
+def phase17(torch, ops, dev, card: str, root: Path) -> dict:
+    """Phase 17 (a)-(d); returns the K5/K6 launches of (b) and (c)."""
+    phase("17 the pod tools: card peaks, a meta trace against the card, "
+          "collective logs against two ranks, the perf driver's cells")
+    t0 = time.perf_counter()
+    perf = pod_perf_start(root, torch.cuda.get_device_name(0))
+    try:
+        peaks = pod_card(torch, card)
+        release(torch)
+        launched = pod_trace_vs_card(torch, ops, dev, peaks)
+        release(torch)
+        for k, n in pod_collectives_vs_ranks(torch, root).items():
+            launched[k] += n
+        pod_fsdp_decode(torch, peaks)
+    except BaseException:
+        perf.kill()
+        perf.communicate()
+        raise
+    pod_perf_finish(perf, root, t0)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launched)}, added to the kernels line's counts")
+    return launched
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -3364,6 +3714,8 @@ def main(argv: list[str]) -> int:
                         help="build the kernels and run phase 16 alone: "
                              "its parts of PARTS (of a, b and c; all "
                              "when none is named)")
+    parser.add_argument("--only-phase17", action="store_true",
+                        help="build the kernels and run phase 17 alone")
     parser.add_argument("--rank-worker", help=argparse.SUPPRESS)
     opts = parser.parse_args(argv)
     if opts.rank_worker:
@@ -3425,8 +3777,12 @@ def main(argv: list[str]) -> int:
         if name in ("flash_attention", "ssd"):
             check(sum(counts.values()) > 0,
                   f"{name}: no HMMA/HGMMA in its SASS")
-    if opts.only_phase16:
-        phase16(torch, ops, dev, card, opts.cards, root, opts.only_phase16)
+    if opts.only_phase16 or opts.only_phase17:
+        if opts.only_phase16:
+            phase16(torch, ops, dev, card, opts.cards, root,
+                    opts.only_phase16)
+        if opts.only_phase17:
+            phase17(torch, ops, dev, card, root)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}))
@@ -3776,6 +4132,12 @@ def main(argv: list[str]) -> int:
     launched16 = phase16(torch, ops, dev, card, opts.cards, root)
     for row in kernels:
         row["launches"] += launched16.get(row["name"], 0)
+
+    # ------------------------------------------------------------ phase 17
+    release(torch)
+    launched17 = phase17(torch, ops, dev, card, root)
+    for row in kernels:
+        row["launches"] += launched17.get(row["name"], 0)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

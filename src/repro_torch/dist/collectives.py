@@ -29,12 +29,79 @@ to another backend or to the host.
 convention, but torch 2.13 deprecates them (a FutureWarning on every
 call), its gather returns a list of tensors, and on gloo its gather's
 backward emulates the reduce-scatter by an all-to-all and a sum: hence
-the three small Functions here over the single-tensor collectives."""
+the three small Functions here over the single-tensor collectives.
+
+Inside an active ``launch.hlo.CollectiveLog`` every collective, as it is
+issued, appends a :class:`Record` (its kind, mesh axis and group size,
+dtype and result shape), and so does every narrowing of :func:`split`
+(kind ``"split"``: no communication). Outside a log nothing is recorded.
+
+On an abstract mesh (no process groups: ``launch.mesh.Mesh`` with names
+and sizes alone) a collective takes **meta** tensors only: it records and
+returns a meta tensor of its result's shape, and communicates nothing. A
+CPU or CUDA tensor there raises, as ``Mesh.group`` does: nothing real
+runs in place of a real collective. The pod tools (``launch/dryrun.py``)
+run one rank's program of a pod's mesh this way."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Record:
+    """One collective as it was issued: ``kind`` ("all-gather",
+    "reduce-scatter", "all-reduce", or "split" for a local narrowing), the
+    mesh ``axis`` and its ``group`` size, and the result's dtype and
+    shape (this rank's)."""
+
+    kind: str
+    axis: str
+    group: int
+    dtype: torch.dtype
+    shape: tuple
+
+    @property
+    def result_bytes(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n * self.dtype.itemsize
+
+
+#: The records of the active ``launch.hlo.CollectiveLog``, or None. A
+#: module global, not a thread-local: the backward pass issues the
+#: gathers' reduce-scatters on autograd's own thread.
+_LOG = None
+
+
+def install_log(records: list | None):
+    """Make ``records`` the list that collectives append to (None: record
+    nothing); returns the list it replaces."""
+    global _LOG
+    prev, _LOG = _LOG, records
+    return prev
+
+
+def _record(kind: str, mesh, axis: str, out: torch.Tensor) -> None:
+    if _LOG is not None:
+        _LOG.append(Record(kind, axis, mesh.axis_size(axis), out.dtype,
+                           tuple(out.shape)))
+
+
+def _abstract(mesh, x: torch.Tensor) -> bool:
+    """Whether a collective of ``x`` only records: a meta tensor on an
+    abstract mesh. A meta tensor on a mesh with process groups raises."""
+    if not x.is_meta:
+        return False
+    if mesh.groups is not None:
+        raise RuntimeError("a meta tensor over a mesh with process groups: "
+                           "meta collectives run on an abstract mesh")
+    return True
+
 
 def _check(mesh, axis: str, x: torch.Tensor):
     """The axis's group, after checking that its backend may carry ``x``."""
@@ -52,17 +119,22 @@ def _check(mesh, axis: str, x: torch.Tensor):
 
 
 def _gather(mesh, axis, x, dim):
-    group = _check(mesh, axis, x)
+    abstract = _abstract(mesh, x)
+    group = None if abstract else _check(mesh, axis, x)
     n = mesh.axis_size(axis)
     x = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
-    return out.movedim(0, dim)
+    if not abstract:
+        dist.all_gather_into_tensor(out, x, group=group)
+    out = out.movedim(0, dim)
+    _record("all-gather", mesh, axis, out)
+    return out
 
 
 def _scatter(mesh, axis, x, dim):
-    group = _check(mesh, axis, x)
+    abstract = _abstract(mesh, x)
+    group = None if abstract else _check(mesh, axis, x)
     n = mesh.axis_size(axis)
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
@@ -70,14 +142,20 @@ def _scatter(mesh, axis, x, dim):
     x = x.movedim(dim, 0).contiguous()
     out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.reduce_scatter_tensor(out, x, group=group)
-    return out.movedim(0, dim)
+    if not abstract:
+        dist.reduce_scatter_tensor(out, x, group=group)
+    out = out.movedim(0, dim)
+    _record("reduce-scatter", mesh, axis, out)
+    return out
 
 
 def _reduce(mesh, axis, x, op=dist.ReduceOp.SUM):
-    group = _check(mesh, axis, x)
+    abstract = _abstract(mesh, x)
+    group = None if abstract else _check(mesh, axis, x)
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=group)
+    if not abstract:
+        dist.all_reduce(out, op=op, group=group)
+    _record("all-reduce", mesh, axis, out)
     return out
 
 
@@ -169,4 +247,5 @@ def split(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
         if n > 1:
             size = x.shape[dim] // n
             x = x.narrow(dim, mesh.axis_index(a) * size, size)
+            _record("split", mesh, a, x)
     return x

@@ -11,13 +11,24 @@ Training reaches K5 and K6 through ``torch.autograd.Function``s, the
 counterparts of the reference's custom_vjps (``src/repro/kernels/ops.py``
 :55-107): the forward launches the kernel, and the backward recomputes the
 plain version from the saved inputs and differentiates it. The reference
-has no backward kernel, so none is ported."""
+has no backward kernel, so none is ported.
+
+Inside an active work log (:func:`work_log`, which the pod tools'
+counter installs) every wrapper also records its kernel's work, a
+:class:`Work` (kernel, FLOPs, bytes, dtype), on CUDA inputs and on meta
+inputs alike. Meta inputs take the card's path there, its argument checks
+and its output allocations, and launch nothing: the result is a meta
+tensor of the kernel's output shape. Outside a work log, meta inputs
+raise like any other device that is not the CPU or one CUDA device."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from . import build, ref
@@ -68,6 +79,50 @@ _SIGS = {
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """One kernel call's work: ``flops`` counted as PERF.md's bounds count
+    them, in ``dtype`` ("bf16", "f32", or "tf32" for K6's 3xTF32 products:
+    three TF32 products per f32 product), and ``bytes``, each input read
+    once and each output written once. K1 and K4 count f32 operations
+    outside the tensor cores; K1 counts every squaring it is asked for
+    (an upper bound: a design stops at its fixed point) and K4 the work
+    that does not depend on the path lengths."""
+
+    kernel: str
+    flops: float
+    bytes: float
+    dtype: str
+
+
+#: The records of the active work log, or None. A module global: K5 and
+#: K6 run in the backward pass's recompute on autograd's thread.
+_WORK = None
+
+
+@contextlib.contextmanager
+def work_log(records: list):
+    """Append a :class:`Work` to ``records`` for every kernel call made
+    inside, and let meta inputs take the card's path."""
+    global _WORK
+    prev, _WORK = _WORK, records
+    try:
+        yield records
+    finally:
+        _WORK = prev
+
+
+def _work(kernel: str, flops: float, n_bytes: float, dtype: str) -> None:
+    if _WORK is not None:
+        _WORK.append(Work(kernel, float(flops), float(n_bytes), dtype))
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The short name work is keyed by: "bf16", "f32", ..."""
+    return {torch.bfloat16: "bf16", torch.float32: "f32",
+            torch.float16: "f16"}.get(dtype, str(dtype))
+
+
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
@@ -89,12 +144,15 @@ def _fn(symbol: str):
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs, False for CPU inputs; raises on a mix or on
-    any other device."""
+    """True for CUDA inputs, and for meta inputs inside a work log (the
+    card's path, launching nothing); False for CPU inputs; raises on a mix
+    or on any other device."""
     types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return False
     if types == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    if types == {"meta"} and _WORK is not None:
         return True
     raise ValueError(f"kernel inputs must all be on one CPU or CUDA device, "
                      f"got {sorted(str(t.device) for t in tensors)}")
@@ -112,7 +170,10 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     """Launch on the current stream of ``device`` (a tensor's, so its index
-    is set), made the current device first where it is not."""
+    is set), made the current device first where it is not. On the meta
+    device nothing is launched or counted."""
+    if device.type == "meta":
+        return None
     idx = device.index
     if idx != torch.cuda.current_device():
         with torch.cuda.device(idx):
@@ -125,6 +186,13 @@ def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
 
 
 # ------------------------------------------------------------------- K1
+def _minplus_work(bsz: int, n: int, squarings: int) -> None:
+    """An add and a min per (i, k, j) and squaring; the batch read and
+    written once."""
+    _work("minplus", 2 * squarings * bsz * n ** 3, 2 * 4 * bsz * n * n,
+          "f32")
+
+
 def _minplus_into(a, b, out) -> None:
     bsz, n, _ = a.shape
     _launch("minplus", "minplus_launch", a.device, a.data_ptr(), b.data_ptr(),
@@ -145,6 +213,7 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.minplus_ref(a, b)
     _check_square_batch(a, b)
     out = torch.empty_like(a)
+    _minplus_work(a.shape[0], a.shape[1], 1)
     _minplus_into(a, b, out)
     return out
 
@@ -164,6 +233,7 @@ def apsp(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
     if n_iters == 0:
         return cost.clone()
     bsz, n, _ = cost.shape
+    _minplus_work(bsz, n, n_iters)
     if n <= APSP_MAX_N:
         out = torch.empty_like(cost)
         if bsz:
@@ -268,6 +338,21 @@ def _forest_args(forest: PackedForest, x: torch.Tensor) -> tuple:
             int(forest.route == "smem"))
 
 
+def _forest_work(kernel: str, forest: PackedForest, rows: int, f: int,
+                 normalize: bool) -> None:
+    """A compare per level and tree and an add per tree for each row (and
+    with ``normalize`` a subtract and a divide per feature); 12 bytes of
+    node record per level and 4 of leaf value per tree and row, the rows
+    read once."""
+    t, depth = forest.n_trees, forest.depth
+    flops = rows * (t * (depth + 1) + (2 * f if normalize else 0))
+    n_bytes = rows * (t * (12 * depth + 4) + 4 * f)
+    # K3 reads the two (F,) normalizers and writes its 8-byte (max,
+    # argmax); K2 writes a value per row.
+    n_bytes += 8 * f + 8 if normalize else 4 * rows
+    _work(kernel, flops, n_bytes, "f32")
+
+
 def forest_predict_packed(forest: PackedForest, x: torch.Tensor
                           ) -> torch.Tensor:
     """(B,) f32 forest mean of an already-normalized (B, F) batch (K2)."""
@@ -276,6 +361,7 @@ def forest_predict_packed(forest: PackedForest, x: torch.Tensor
     rec, val, t, m, f, depth, cl, br, route = _forest_args(forest, x)
     rows = x.shape[0]
     out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    _forest_work("forest_predict", forest, rows, f, False)
     if rows:
         _launch("forest_predict", "forest_predict_launch", x.device, rec,
                 val, x.data_ptr(), out.data_ptr(), rows, t, m, f, depth, cl,
@@ -308,7 +394,8 @@ def score_block_max_packed(forest: PackedForest, xm, xs, x, n_real: int,
         out[1] = j
         return out
     dev = x.device
-    if torch.cuda.current_stream(dev) != torch.cuda.default_stream(dev):
+    if dev.type == "cuda" and (torch.cuda.current_stream(dev)
+                               != torch.cuda.default_stream(dev)):
         raise RuntimeError(
             "score_block_max: K3's fold counter is shared by every launch on "
             f"{dev}; call it on the device's default stream, not "
@@ -317,6 +404,7 @@ def score_block_max_packed(forest: PackedForest, xm, xs, x, n_real: int,
     _check(xm, "xm", torch.float32, (f,))
     _check(xs, "xs", torch.float32, (f,))
     n_clusters = -(-n_real // br)
+    _forest_work("score_block_max", forest, n_real, f, True)
     ws = _fold_scratch.get(dev)
     if ws is None or ws.numel() < 1 + 2 * n_clusters:
         ws = _fold_scratch[dev] = torch.zeros(1 + 2 * n_clusters,
@@ -383,6 +471,10 @@ def walk(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
     # one all-done flag per block of the first.
     scratch = torch.empty(bsz * (2 * n * n + n), dtype=torch.int32,
                           device=dev)
+    # Per pair one add into the parent's flow, util, visits and a column
+    # sum; the adds along each path depend on its length (not counted).
+    _work("walk", 4 * bsz * n * n,
+          4 * (5 * bsz * n * n + n * n + bsz * n + bsz), "f32")
     if bsz:
         _launch("walk", "walk_launch", dev, nh.data_ptr(), f.data_ptr(),
                 delay.data_ptr(), bsz, n, max_hops, hops.data_ptr(),
@@ -451,6 +543,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _attention(q, k, v, causal, window)
 
 
+@functools.lru_cache(maxsize=256)
+def attention_pairs(sq: int, sk: int, causal: bool, window: int | None
+                    ) -> int:
+    """(query, key) pairs under K5's mask for one head: query i sees key
+    j when j <= i (causal) and j > i - window (a window)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def _attention(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
     if not _on_cuda(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -475,6 +578,10 @@ def _attention(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
         if t.stride(3) != 1:
             raise ValueError(f"{name}: last dimension must be contiguous")
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    _work("flash_attention",
+          4 * d * b * h * attention_pairs(sq, sk, causal, window),
+          q.dtype.itemsize * (2 * b * h * sq * d + 2 * b * kh * sk * d),
+          dtype_name(q.dtype))
     if out.numel():
         _launch("flash_attention", "flash_attention_launch", q.device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -544,6 +651,20 @@ def ssd(x, dt, a, b, c, d, *, chunk: int = 64, return_state: bool = False):
     return _ssd(x, dt, a, b, c, d, chunk, return_state)
 
 
+def ssd_work(bsz: int, s: int, h: int, p: int, n: int, chunk: int,
+             return_state: bool) -> tuple[int, int]:
+    """(FLOPs as 3xTF32, bytes) of one K6 call: per chunk (a ragged tail
+    padded to one) the intra-chunk products over the causal (i, j) pairs
+    and the chunk-state products, each f32 product three TF32 products;
+    each input read once, y (and the final state) written once."""
+    tri = chunk * (chunk + 1) // 2
+    per_chunk = 2 * tri * (n + p) + 4 * chunk * n * p
+    flops = 3 * bsz * h * (-(-s // chunk)) * per_chunk
+    n_bytes = 4 * (2 * bsz * s * h * p + bsz * s * h + 2 * bsz * s * n
+                   + 2 * h + (bsz * h * n * p if return_state else 0))
+    return flops, n_bytes
+
+
 def _ssd(x, dt, a, b, c, d, chunk: int, return_state: bool):
     if not _on_cuda(x, dt, a, b, c, d):
         return ssd_plain(x, dt, a, b, c, d, chunk=chunk,
@@ -565,6 +686,8 @@ def _ssd(x, dt, a, b, c, d, chunk: int, return_state: bool):
     y = torch.empty_like(x)
     state = (torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
              if return_state else None)
+    flops, n_bytes = ssd_work(bsz, s, h, p, n, chunk, return_state)
+    _work("ssd", flops, n_bytes, "tf32")
     if bsz and h:
         _launch("ssd", "ssd_launch", x.device, x.data_ptr(), dt.data_ptr(),
                 a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),

@@ -196,7 +196,10 @@ def stack_layers(n: int, draw, name: str = "layers") -> dict:
 
 def init_dense(gen: torch.Generator, shape, scale_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
-    """Normal(0, 1/fan_in) weights drawn from ``gen`` on its device."""
+    """Normal(0, 1/fan_in) weights drawn from ``gen`` on its device (on
+    the meta device, the shape and dtype alone)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[scale_axis]
     w = torch.randn(shape, generator=gen, device=gen.device)
     return (w * (fan_in ** -0.5)).to(dtype)

@@ -10,7 +10,12 @@ than one rank the model holds this rank's shards of every parameter
 seed as one process draws them, and cut as they are drawn, or cut from
 the whole tree it is given) and runs its methods under that plan. On a
 one-rank mesh, or none, there is no plan: the meshless path, bit for
-bit."""
+bit.
+
+On the ``"meta"`` device a model holds its tree's shapes and dtypes and
+allocates nothing: the pod tools (``launch/dryrun.py``) run one rank's
+step on it. ``abstract_params()`` is the reference's
+``Model.abstract_params``: the parameter tree on the meta device."""
 
 from __future__ import annotations
 
@@ -40,6 +45,27 @@ def _leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", k, v
 
 
+def _model_device(device) -> torch.device:
+    """``device`` as :func:`resolve_device` takes it, or the meta device
+    (shapes only)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _generator(dev: torch.device, seed: int) -> torch.Generator:
+    if dev.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _abstract_params(cfg: ModelConfig, plan) -> dict:
+    """The parameter tree of ``cfg`` on the meta device (this rank's shards
+    under ``plan``)."""
+    with torch.no_grad(), activation_sharding(plan):
+        return _family(cfg).init_params(cfg, MetaGenerator())
+
+
 def _map(tree: dict, fn) -> dict:
     return {k: _map(v, fn) if isinstance(v, dict) else fn(k, v)
             for k, v in tree.items()}
@@ -63,6 +89,12 @@ class _Weights(nn.Module):
         cd = cfg.compute_dtype
         self.run_params = _map(
             self.params, lambda k, v: v.to(cd) if k in _CAST else v)
+
+    def abstract_params(self) -> dict:
+        """The parameter tree's shapes and dtypes on the meta device, as
+        the reference's ``Model.abstract_params`` (this rank's shards on a
+        mesh)."""
+        return _abstract_params(self.cfg, self.plan)
 
 
 class Model(_Weights):
@@ -157,16 +189,17 @@ def _family(cfg: ModelConfig):
 def build(cfg: ModelConfig, params: dict | None = None, *, seed: int = 0,
           device=None, mesh=None, policy=None) -> Model | EncDecModel:
     """The model of ``cfg`` on ``device`` (a CUDA device unless the caller
-    asks for the CPU). Without ``params`` the weights are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on that device. On a ``mesh``
-    of more than one rank it holds this rank's shards under ``policy``
+    asks for the CPU or ``"meta"``). Without ``params`` the weights are
+    drawn from a ``torch.Generator`` seeded with ``seed`` on that device.
+    On a ``mesh`` of more than one rank it holds this rank's shards under
+    ``policy``
     (the default ``Policy()`` when None): drawn whole, layer by layer, and
     cut as they are drawn, or cut from the whole tree ``params``."""
     fam = _family(cfg)
-    dev = resolve_device(device)
+    dev = _model_device(device)
     plan = plan_for(cfg, mesh, policy)
     if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = _generator(dev, seed)
         with torch.inference_mode(), activation_sharding(plan):
             params = fam.init_params(cfg, gen)
     elif plan is not None:
@@ -193,13 +226,16 @@ class TrainModel:
         the tree's shapes and dtypes only). Drawn under ``no_grad``, not
         ``inference_mode``: autograd must be able to save them."""
         dev = self.device if device is None else torch.device(device)
-        gen = (MetaGenerator() if dev.type == "meta"
-               else torch.Generator(device=dev).manual_seed(seed))
+        gen = _generator(dev, seed)
         with torch.no_grad(), activation_sharding(self.plan):
             params = _family(self.cfg).init_params(self.cfg, gen)
         for _, _, v in _leaves(params):
             v.requires_grad_(True)
         return params
+
+    def abstract_params(self) -> dict:
+        """``init(0, "meta")``: the reference's ``Model.abstract_params``."""
+        return self.init(0, "meta")
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """The scalar training loss of ``batch`` (tensors on the device;
@@ -213,8 +249,8 @@ class TrainModel:
 def build_train(cfg: ModelConfig, device=None, *, mesh=None,
                 policy=None) -> TrainModel:
     """The training model of ``cfg`` on ``device`` (a CUDA device unless
-    the caller asks for the CPU), holding this rank's shards on a ``mesh``
+    the caller asks for the CPU or ``"meta"``), holding this rank's shards on a ``mesh``
     of more than one rank."""
     _family(cfg)
-    return TrainModel(cfg, resolve_device(device),
+    return TrainModel(cfg, _model_device(device),
                       plan_for(cfg, mesh, policy))

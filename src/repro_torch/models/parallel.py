@@ -171,7 +171,11 @@ class ShardPlan:
             spec = self.specs[path][1:] if stacked else self.specs[path]
             whole = self.shapes[path][1:] if stacked else self.shapes[path]
             if tuple(v.shape) == whole:
-                return shd.local_slice(self.mesh, spec, v).contiguous()
+                shard = shd.local_slice(self.mesh, spec, v)
+                if shard.shape == v.shape:
+                    return v.contiguous()
+                # A copy: a view would keep the whole tensor's storage.
+                return shard.clone(memory_format=torch.contiguous_format)
             if tuple(v.shape) == shd.local_shape(self.mesh, spec, whole):
                 return v.contiguous()
             raise ValueError(f"{'.'.join(path)}: shape {tuple(v.shape)} is "

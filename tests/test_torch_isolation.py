@@ -41,6 +41,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.launch.mesh, repro_torch.launch.ranks\n"
         "import repro_torch.dist.collectives, repro_torch.models.parallel\n"
         "import repro_torch.launch.memory, repro_torch.train.grad_compress\n"
+        "import repro_torch.launch.constants, repro_torch.launch.hlo\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.perf\n"
+        "from repro_torch.configs import input_specs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -60,7 +64,9 @@ def test_no_source_of_the_port_imports_jax_or_repro():
                 "train/optimizer.py", "train/grad_compress.py",
                 "data/pipeline.py", "dist/sharding.py", "launch/train.py",
                 "launch/mesh.py", "launch/ranks.py", "dist/collectives.py",
-                "models/parallel.py", "launch/memory.py"):
+                "models/parallel.py", "launch/memory.py",
+                "launch/constants.py", "launch/hlo.py", "launch/dryrun.py",
+                "launch/roofline.py", "launch/perf.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
