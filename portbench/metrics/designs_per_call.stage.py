@@ -1,0 +1,10 @@
+"""designs_per_call.stage: designs_per_call (metrics/designs_per_call.py) in the MOO-STAGE cells. Their search
+time spreads too widely from run to run for an end-to-end bound, so it is
+read per layer there, and this reading names front_phv as the end-to-end
+metric of those cells."""
+
+from pathlib import Path
+
+from portbench.harness import load_reader
+
+read = load_reader("designs_per_call", Path(__file__).resolve().parents[2])
