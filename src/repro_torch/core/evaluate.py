@@ -31,6 +31,7 @@ from . import routing
 from .objectives import (N_OBJ, SpecConsts, design_cost, design_cost_np,
                          evaluate_with_tables, make_consts)
 from .problem import Design, NeighborMoves, SystemSpec
+from ..tracing import span
 
 DELTA_MODES = ("auto", "on", "off")
 
@@ -134,19 +135,24 @@ class Evaluator:
                 lo = hi
         self.n_evals += len(designs)
         self.n_calls += 1
-        objs = np.concatenate([o.cpu().numpy() for o, _ in outs], axis=0)
-        aux = {k: np.concatenate([a[k].cpu().numpy() for _, a in outs],
-                                 axis=0) for k in outs[0][1]}
-        return objs.astype(np.float64), aux
+        with span("noc.eval.read"):
+            objs = np.concatenate([o.cpu().numpy() for o, _ in outs], axis=0)
+            aux = {k: np.concatenate([a[k].cpu().numpy() for _, a in outs],
+                                     axis=0) for k in outs[0][1]}
+            return objs.astype(np.float64), aux
 
     def _dense(self, device, consts, f, designs):
         """Cost build → APSP (K1) → next hops → walk (K4) → objectives for
         ``designs`` on ``device``; returns the device tensors."""
-        perms = self._to_dev([d.perm for d in designs], torch.int64, device)
-        adjs = self._to_dev([d.adj for d in designs], torch.bool, device)
-        costs = design_cost(consts, adjs)
-        dist, nh = routing.routing_tables_batched(costs, consts.apsp_iters)
-        return evaluate_with_tables(consts, perms, adjs, f, dist, nh)
+        with span("noc.eval.pack"):
+            perms = self._to_dev([d.perm for d in designs], torch.int64,
+                                 device)
+            adjs = self._to_dev([d.adj for d in designs], torch.bool, device)
+        with span("noc.eval.enqueue"):
+            costs = design_cost(consts, adjs)
+            dist, nh = routing.routing_tables_batched(costs,
+                                                      consts.apsp_iters)
+            return evaluate_with_tables(consts, perms, adjs, f, dist, nh)
 
     # -------------------------------------------------------------- moves
     def batch_moves(self, moves) -> np.ndarray:
@@ -165,7 +171,9 @@ class Evaluator:
         if not mvs:
             return np.zeros((0, N_OBJ))
         if not self.delta_on:
-            return self.batch([d for m in mvs for d in m.materialize_all()])
+            with span("noc.eval.pack"):
+                designs = [d for m in mvs for d in m.materialize_all()]
+            return self.batch(designs)
         perms, adjs, dists, nhs = [], [], [], []
         for mv in mvs:
             t0 = self._host_tables(mv.base)
@@ -260,14 +268,18 @@ class Evaluator:
         step = self.max_batch if self.max_batch is not None else len(perms)
         for i in range(0, len(perms), step):
             sl = slice(i, i + step)
-            adj = self._to_dev(adjs[sl], torch.bool)
-            objs, _ = evaluate_with_tables(
-                self.consts, self._to_dev(perms[sl], torch.int64), adj,
-                self.f, self._to_dev(dists[sl], torch.float32),
-                self._to_dev(nhs[sl], torch.int32))
+            with span("noc.eval.pack"):
+                adj = self._to_dev(adjs[sl], torch.bool)
+                perm = self._to_dev(perms[sl], torch.int64)
+                dist = self._to_dev(dists[sl], torch.float32)
+                nh = self._to_dev(nhs[sl], torch.int32)
+            with span("noc.eval.enqueue"):
+                objs, _ = evaluate_with_tables(self.consts, perm, adj,
+                                               self.f, dist, nh)
             self.n_evals += adj.shape[0]
             self.n_calls += 1
-            out.append(objs.cpu().numpy().astype(np.float64))
+            with span("noc.eval.read"):
+                out.append(objs.cpu().numpy().astype(np.float64))
         return np.concatenate(out, axis=0)
 
     # ---------------------------------------------------------------- EDP

@@ -22,6 +22,7 @@ import numpy as np
 from .evaluate import Evaluator
 from .pareto import ParetoArchive, PhvContext
 from .problem import Design, SystemSpec, sample_neighbor_moves
+from ..tracing import span
 
 
 def _crowding_thin(objs: np.ndarray, keep: int) -> np.ndarray:
@@ -191,29 +192,32 @@ def local_search_batch(
     its *marginal* PHV over what is already known — chains coordinate toward
     complementary regions instead of re-finding the same tradeoffs."""
     start_objs = ev.batch(starts)
-    chains = [_Chain(d0, o, ctx, seed_set) for d0, o in zip(starts, start_objs)]
+    with span("noc.ls.start"):
+        chains = [_Chain(d0, o, ctx, seed_set)
+                  for d0, o in zip(starts, start_objs)]
 
     for step in range(1, max_steps + 1):
         if max_evals is not None and ev.n_evals >= max_evals:
             break
-        move_lists: list = []
-        for ch in chains:
-            if not ch.active:
-                move_lists.append(None)
-                continue
-            ch.n_steps = step
-            # Neighborhoods stay in move form: the evaluator can serve them
-            # from incremental table deltas (Evaluator.batch_moves — at
-            # spec_large scale each candidate costs an O(N²) table update
-            # instead of a full APSP), and only the per-chain winning move
-            # is ever materialized as a Design.
-            mv = sample_neighbor_moves(spec, ch.d_curr, rng, n_swaps,
-                                       n_link_moves)
-            if not len(mv):
-                ch.active = False
-                move_lists.append(None)
-                continue
-            move_lists.append(mv)
+        with span("noc.ls.sample"):
+            move_lists: list = []
+            for ch in chains:
+                if not ch.active:
+                    move_lists.append(None)
+                    continue
+                ch.n_steps = step
+                # Neighborhoods stay in move form: the evaluator can serve
+                # them from incremental table deltas (Evaluator.batch_moves
+                # — at spec_large scale each candidate costs an O(N²) table
+                # update instead of a full APSP), and only the per-chain
+                # winning move is ever materialized as a Design.
+                mv = sample_neighbor_moves(spec, ch.d_curr, rng, n_swaps,
+                                           n_link_moves)
+                if not len(mv):
+                    ch.active = False
+                    move_lists.append(None)
+                    continue
+                move_lists.append(mv)
         live = [mv for mv in move_lists if mv is not None]
         if not live:
             break
@@ -228,32 +232,36 @@ def local_search_batch(
                 continue
             # argmax_d PHV(S_local ∪ {d}) — Alg. 1 line 3, scored for the
             # whole neighborhood in one batched exclusive-contribution pass.
-            phvs = ctx.phv_with_batch(ch.s_local.objs, objs)
-            j = int(np.argmax(phvs))
+            with span("noc.ls.score"):
+                phvs = ctx.phv_with_batch(ch.s_local.objs, objs)
+                j = int(np.argmax(phvs))
             if phvs[j] <= ch.phv + 1e-12:
                 ch.active = False
                 continue
-            ch.d_curr = mv.materialize(j)
-            ev.note_accept(mv, j)
-            ch.s_local = ch.s_local.merged_with([ch.d_curr], objs[j][None],
-                                                ctx.obj_idx)
-            ch.phv = phvs[j]
-            if len(ch.s_local.designs) > max_set:
-                # Bound the PHV working set (crowding thinning, as AMOSA
-                # bounds its archive) — HSO cost grows fast with set size.
-                keep = _crowding_thin(
-                    ctx.normalize(ch.s_local.objs), max_set * 2 // 3)
-                ch.s_local = ParetoSet(
-                    [ch.s_local.designs[i] for i in keep],
-                    ch.s_local.objs[keep])
-                # Re-anchor the greedy bar to the thinned set: candidates are
-                # scored against it, so keeping the pre-thinning PHV would
-                # set an unattainable bar and stall the chain.
-                ch.phv = ctx.phv(ch.s_local.objs)
-            ch.traj.append(ch.d_curr)
-            ch.traj_objs.append(objs[j])
-            if history is not None:
-                history.record(ev, ch.d_curr, objs[j])
+            with span("noc.ls.keep"):
+                ch.d_curr = mv.materialize(j)
+                ev.note_accept(mv, j)
+                ch.s_local = ch.s_local.merged_with(
+                    [ch.d_curr], objs[j][None], ctx.obj_idx)
+                ch.phv = phvs[j]
+                if len(ch.s_local.designs) > max_set:
+                    # Bound the PHV working set (crowding thinning, as
+                    # AMOSA bounds its archive) — HSO cost grows fast with
+                    # set size.
+                    keep = _crowding_thin(
+                        ctx.normalize(ch.s_local.objs), max_set * 2 // 3)
+                    ch.s_local = ParetoSet(
+                        [ch.s_local.designs[i] for i in keep],
+                        ch.s_local.objs[keep])
+                    # Re-anchor the greedy bar to the thinned set:
+                    # candidates are scored against it, so keeping the
+                    # pre-thinning PHV would set an unattainable bar and
+                    # stall the chain.
+                    ch.phv = ctx.phv(ch.s_local.objs)
+                ch.traj.append(ch.d_curr)
+                ch.traj_objs.append(objs[j])
+                if history is not None:
+                    history.record(ev, ch.d_curr, objs[j])
         if not any(ch.active for ch in chains):
             break
 

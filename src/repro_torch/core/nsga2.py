@@ -26,6 +26,7 @@ from .evaluate import Evaluator
 from .local_search import ParetoSet, SearchHistory
 from .pareto import PhvContext
 from .problem import Design, SystemSpec, sample_neighbors
+from ..tracing import span
 
 RANK_BACKENDS = ("auto", "numpy", "device")
 
@@ -124,11 +125,12 @@ def rank_and_crowding(objs: np.ndarray, backend: str | None = None,
     """(rank, crowding) for one population on the selected backend;
     ``"device"`` runs the f32 twin on ``device`` (default ``"cuda"``) and
     returns f64 crowding."""
-    if resolve_rank_backend(backend, device) == "device":
-        rank, crowd = _rank_crowd_torch(torch.as_tensor(
-            np.asarray(objs, np.float32), device=resolve_device(device)))
-        return rank.cpu().numpy(), crowd.cpu().numpy().astype(np.float64)
-    return _fast_nondominated_rank(objs), _crowding(objs)
+    with span("noc.nsga2.rank"):
+        if resolve_rank_backend(backend, device) == "device":
+            rank, crowd = _rank_crowd_torch(torch.as_tensor(
+                np.asarray(objs, np.float32), device=resolve_device(device)))
+            return rank.cpu().numpy(), crowd.cpu().numpy().astype(np.float64)
+        return _fast_nondominated_rank(objs), _crowding(objs)
 
 
 def _crossover(spec: SystemSpec, a: Design, b: Design,
@@ -195,14 +197,15 @@ def nsga2(
                 return pop[i]
             return pop[j]
 
-        children: list[Design] = []
-        while len(children) < pop_size:
-            c = _crossover(spec, tournament(), tournament(), rng)
-            if rng.random() < p_mutate:
-                nb = sample_neighbors(spec, c, rng, 1, 1)
-                if nb:
-                    c = nb[rng.integers(len(nb))]
-            children.append(c)
+        with span("noc.nsga2.vary"):
+            children: list[Design] = []
+            while len(children) < pop_size:
+                c = _crossover(spec, tournament(), tournament(), rng)
+                if rng.random() < p_mutate:
+                    nb = sample_neighbors(spec, c, rng, 1, 1)
+                    if nb:
+                        c = nb[rng.integers(len(nb))]
+                children.append(c)
         child_objs = ev.batch(children)
         for d, o in zip(children, child_objs):
             history.record(ev, d, o)

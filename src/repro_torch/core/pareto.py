@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..device import resolve_device
+from ..tracing import count
 
 
 def dominates(a: np.ndarray, b: np.ndarray) -> bool:
@@ -244,13 +245,16 @@ def hypervolume_with_batch(points: np.ndarray, cands: np.ndarray,
     cands = np.atleast_2d(np.asarray(cands, dtype=np.float64))
     c = np.minimum(cands, ref)
     box = np.prod(np.maximum(ref - c, 0.0), axis=1)
+    count("noc.phv.candidates", c.shape[0])
     if pts.size == 0:
         return box.copy()
     pts = pareto_filter(np.minimum(pts, ref))
     base = _hso(pts, ref)
     out = np.full(c.shape[0], base)
     covered = np.any(np.all(pts[None, :, :] <= c[:, None, :], axis=2), axis=1)
-    for i in np.flatnonzero(~covered & (box > 0)):
+    survivors = np.flatnonzero(~covered & (box > 0))
+    count("noc.phv.hso", survivors.size)
+    for i in survivors:
         clipped = np.maximum(pts, c[i])
         vol_sub = _hso(clipped[pareto_mask(clipped)], ref)
         out[i] = base + (box[i] - vol_sub)

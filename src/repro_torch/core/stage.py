@@ -30,6 +30,7 @@ from .local_search import (LocalResult, ParetoSet, SearchHistory,
 from .pareto import PhvContext
 from .problem import (Design, SystemSpec, random_design,
                       sample_neighbor_moves, sample_neighbors)
+from ..tracing import span
 
 
 def _merge_forest_kwargs(forest_kwargs: dict | None,
@@ -133,24 +134,25 @@ def _meta_greedy(
     for this model (the multi-chain driver scores every chain's restart
     against one fitted forest)."""
     check_meta_backend(backend)
-    if backend == "host":
-        return _meta_greedy_host(
-            spec, model, d_from, rng, n_swaps=n_swaps,
-            n_link_moves=n_link_moves, max_steps=max_steps)
-    sc = scorer if scorer is not None else MetaScorer(
-        spec, model, backend=backend, device=model.device)
-    d_curr = d_from
-    v_curr = sc.score_base(d_curr)
-    for _ in range(max_steps):
-        moves = sample_neighbor_moves(spec, d_curr, rng, n_swaps,
-                                      n_link_moves)
-        if not len(moves):
-            break
-        j, vj = sc.score_moves(moves)
-        if vj <= v_curr + 1e-12:
-            break
-        d_curr, v_curr = moves.materialize(j), vj
-    return d_curr
+    with span("noc.surrogate.meta"):
+        if backend == "host":
+            return _meta_greedy_host(
+                spec, model, d_from, rng, n_swaps=n_swaps,
+                n_link_moves=n_link_moves, max_steps=max_steps)
+        sc = scorer if scorer is not None else MetaScorer(
+            spec, model, backend=backend, device=model.device)
+        d_curr = d_from
+        v_curr = sc.score_base(d_curr)
+        for _ in range(max_steps):
+            moves = sample_neighbor_moves(spec, d_curr, rng, n_swaps,
+                                          n_link_moves)
+            if not len(moves):
+                break
+            j, vj = sc.score_moves(moves)
+            if vj <= v_curr + 1e-12:
+                break
+            d_curr, v_curr = moves.materialize(j), vj
+        return d_curr
 
 
 def moo_stage(
@@ -221,13 +223,15 @@ def moo_stage(
 
         # Aggregate training examples: every trajectory design is labeled
         # with the PHV its local search achieved (line 7).
-        x_train.extend(design_features_batch(spec, res.traj))
-        y_train.extend([res.phv] * len(res.traj))
+        with span("noc.surrogate.fit"):
+            x_train.extend(design_features_batch(spec, res.traj))
+            y_train.extend([res.phv] * len(res.traj))
 
-        fk = _merge_forest_kwargs(forest_kwargs, forest_backend, ev.device)
-        model = RegressionForest(seed=seed + it, **fk).fit(
-            np.stack(x_train), np.asarray(y_train)
-        )
+            fk = _merge_forest_kwargs(forest_kwargs, forest_backend,
+                                      ev.device)
+            model = RegressionForest(seed=seed + it, **fk).fit(
+                np.stack(x_train), np.asarray(y_train)
+            )
 
         d_restart = _meta_greedy(
             spec, model, res.d_last, rng,
@@ -356,8 +360,9 @@ def stage_batch(
         if x_init.shape[0]:
             # Warm surrogate: seeded past the per-iteration range (it <
             # iters_max) so the entry fit never collides with a refit seed.
-            model = RegressionForest(seed=seed + iters_max, **fk).fit(
-                x_init, y_init)
+            with span("noc.surrogate.fit"):
+                model = RegressionForest(seed=seed + iters_max, **fk).fit(
+                    x_init, y_init)
     converged = False
     n_local = 0
     next_starts = list(starts)
@@ -388,20 +393,24 @@ def stage_batch(
             if merged.keys() - s_global.keys():  # new keys can only be local
                 any_new = True
             s_global = merged
-            x_train.extend(design_features_batch(spec, res.traj))
-            y_train.extend([res.phv] * len(res.traj))
+            with span("noc.surrogate.fit"):
+                x_train.extend(design_features_batch(spec, res.traj))
+                y_train.extend([res.phv] * len(res.traj))
 
         def _refit_and_restart():
-            xs = np.stack(x_train)
-            ys = np.asarray(y_train, dtype=np.float64)
-            if x_init is not None and x_init.shape[0]:
-                xs = np.vstack([x_init, xs])
-                ys = np.concatenate([y_init, ys])
-            m = RegressionForest(seed=seed + it, **fk).fit(xs, ys)
+            with span("noc.surrogate.fit"):
+                xs = np.stack(x_train)
+                ys = np.asarray(y_train, dtype=np.float64)
+                if x_init is not None and x_init.shape[0]:
+                    xs = np.vstack([x_init, xs])
+                    ys = np.concatenate([y_init, ys])
+                m = RegressionForest(seed=seed + it, **fk).fit(xs, ys)
             # One scorer per refit, shared by every chain's meta search
             # (device-resident forest tensors transfer once, not K times).
-            sc = (MetaScorer(spec, m, backend=meta_backend, device=ev.device)
-                  if meta_backend != "host" else None)
+            with span("noc.surrogate.meta"):
+                sc = (MetaScorer(spec, m, backend=meta_backend,
+                                 device=ev.device)
+                      if meta_backend != "host" else None)
             new_starts = []
             for res in results:
                 d_restart = _meta_greedy(

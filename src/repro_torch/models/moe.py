@@ -33,8 +33,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from ..tracing import span
 from .common import ModelConfig, current_plan, init_dense, pshard
 
 GROUP_SIZE = 1024  # tokens per dispatch group
@@ -138,7 +138,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, seq: bool = False):
     n_groups = t // g_size
     xg = tokens[:n_groups * g_size].reshape(n_groups, g_size, d)
 
-    with record_function("moe.route"):
+    with span("moe.route"):
         r = route(cfg, p["router"], xg)
         # Load-balancing aux loss: mean prob times mean assignment per
         # expert.
@@ -152,14 +152,14 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, seq: bool = False):
         if e_local != e:                    # this rank's experts only
             dispatch = dispatch[:, :, e0:e0 + e_local]
             combine = combine[:, :, e0:e0 + e_local]
-    with record_function("moe.dispatch"):
+    with span("moe.dispatch"):
         xe = torch.einsum("gsec,gsd->egcd", dispatch, xg.to(cd))
-    with record_function("moe.experts"):
+    with span("moe.experts"):
         h = torch.einsum("egcd,edf->egcf", xe, p["w1"].to(cd))
         hg = torch.einsum("egcd,edf->egcf", xe, p["w3"].to(cd))
         h = F.silu(h) * hg
         ye = torch.einsum("egcf,efd->egcd", h, p["w2"].to(cd))
-    with record_function("moe.combine"):
+    with span("moe.combine"):
         y = torch.einsum("gsec,egcd->gsd", combine, ye).reshape(-1, d)
     if y.shape[0] < t:  # the ragged tail passes through unchanged
         tail = tokens[y.shape[0]:].to(y.dtype)

@@ -35,6 +35,7 @@ from ..core.problem import (Design, SystemSpec, spec_16, spec_36, spec_64,
 from ..core.routing import resolve_backend
 from ..core.traffic import (APPLICATIONS, TrafficValidationError,
                             avg_traffic, traffic_matrix)
+from ..tracing import ROOT, span
 
 SPEC_NAMES = ("tiny", "16", "36", "64")
 
@@ -556,97 +557,106 @@ def run(
     ``sync_every >= 1``): state is persisted atomically after every sync
     round, and ``resume=True`` restores the latest round and continues,
     byte-identical to the uninterrupted run.
+
+    The call is the root span ``noc.run`` of :mod:`repro_torch.tracing`:
+    traced, one call leaves one record of the spans and counters inside it.
     """
-    from .optimizers import get_optimizer, make_config
+    with span(ROOT):
+        from .optimizers import get_optimizer, make_config
 
-    entry = get_optimizer(optimizer)
-    budget = budget or Budget()
-    cfg = make_config(entry, config)
+        entry = get_optimizer(optimizer)
+        budget = budget or Budget()
+        cfg = make_config(entry, config)
 
-    if checkpoint_dir is not None or resume:
-        if not entry.owns_result or not hasattr(cfg, "checkpoint_dir"):
-            raise ValueError(
-                f"optimizer {entry.name!r} does not support checkpoint_dir/"
-                "resume (round checkpoints are a coordinator feature)")
-        updates: dict[str, Any] = {}
-        if checkpoint_dir is not None:
-            updates["checkpoint_dir"] = checkpoint_dir
-        if resume:
-            updates["resume"] = True
-        # replace() re-runs __post_init__, so the knob combination is
-        # validated exactly as if it had been in `config` to begin with.
-        cfg = dataclasses.replace(cfg, **updates)
+        if checkpoint_dir is not None or resume:
+            if not entry.owns_result or not hasattr(cfg, "checkpoint_dir"):
+                raise ValueError(
+                    f"optimizer {entry.name!r} does not support "
+                    "checkpoint_dir/resume (round checkpoints are a "
+                    "coordinator feature)")
+            updates: dict[str, Any] = {}
+            if checkpoint_dir is not None:
+                updates["checkpoint_dir"] = checkpoint_dir
+            if resume:
+                updates["resume"] = True
+            # replace() re-runs __post_init__, so the knob combination is
+            # validated exactly as if it had been in `config` to begin with.
+            cfg = dataclasses.replace(cfg, **updates)
 
-    if entry.owns_result:
-        # Coordinator drivers (e.g. "stage_dist") run their evaluations on
-        # evaluators this function cannot see — other processes or
-        # devices — so they own accounting, history, and budget
-        # enforcement and return a complete RunResult. No evaluator is
-        # built here: the workers build their own.
-        if ev is not None or ctx is not None:
-            raise ValueError(
-                f"optimizer {entry.name!r} owns its RunResult; ev=/ctx= "
-                "injection is not supported (workers build their own)")
-        if callback is not None or track_phv:
-            raise ValueError(
-                f"optimizer {entry.name!r} owns its RunResult; callback=/"
-                "track_phv= are not supported across worker boundaries")
-        return entry.run_fn(problem, budget, cfg, device)
+        if entry.owns_result:
+            # Coordinator drivers (e.g. "stage_dist") run their evaluations on
+            # evaluators this function cannot see — other processes or
+            # devices — so they own accounting, history, and budget
+            # enforcement and return a complete RunResult. No evaluator is
+            # built here: the workers build their own.
+            if ev is not None or ctx is not None:
+                raise ValueError(
+                    f"optimizer {entry.name!r} owns its RunResult; ev=/ctx= "
+                    "injection is not supported (workers build their own)")
+            if callback is not None or track_phv:
+                raise ValueError(
+                    f"optimizer {entry.name!r} owns its RunResult; callback=/"
+                    "track_phv= are not supported across worker boundaries")
+            return entry.run_fn(problem, budget, cfg, device)
 
-    base_ev = ev if ev is not None else problem.evaluator(device=device)
-    n_evals0, n_calls0 = base_ev.n_evals, base_ev.n_calls
-    guarded = BudgetedEvaluator(base_ev, budget)
-    # The fallback Pareto set is only worth maintaining when the guard can
-    # fire with designs already recorded: under a pure max_evals budget the
-    # native drivers admit the guard only on their first dispatch (nothing
-    # recorded yet — the fallback would be empty regardless), so only a
-    # max_calls limit or a driver without native budget support (PCBB)
-    # justifies the per-record merge upkeep.
-    guard_can_fire = (
-        (budget.max_evals is not None and not entry.native_max_evals)
-        or budget.max_calls is not None)
+        base_ev = ev if ev is not None else problem.evaluator(device=device)
+        n_evals0, n_calls0 = base_ev.n_evals, base_ev.n_calls
+        guarded = BudgetedEvaluator(base_ev, budget)
+        # The fallback Pareto set is only worth maintaining when the guard can
+        # fire with designs already recorded: under a pure max_evals budget the
+        # native drivers admit the guard only on their first dispatch (nothing
+        # recorded yet — the fallback would be empty regardless), so only a
+        # max_calls limit or a driver without native budget support (PCBB)
+        # justifies the per-record merge upkeep.
+        guard_can_fire = (
+            (budget.max_evals is not None and not entry.native_max_evals)
+            or budget.max_calls is not None)
 
-    recorder = None
-    exhausted = False
-    t0 = time.perf_counter()
-    try:
-        if ctx is None:
-            # Through the guard: the PHV-anchoring mesh evaluation counts
-            # against (and is forbidden by) a zero budget like any other.
-            ctx = problem.context(guarded)
-        recorder = RunRecorder(base_ev, ctx, callback=callback,
-                               track_phv=track_phv,
-                               keep_pareto=guard_can_fire)
-        t0 = time.perf_counter()  # optimizer-only wall clock; setup excluded
-        pareto, extra = entry.run_fn(problem, budget, cfg, guarded, ctx,
-                                     recorder)
-    except BudgetExhausted:
-        pareto = recorder.pareto if recorder is not None else ParetoSet.empty()
-        extra, exhausted = {}, True
-    wall = time.perf_counter() - t0
-    # A run that consumed its whole budget reports exhausted=True whether
-    # its own check stopped it or the guard did.
-    if budget.max_evals is not None and base_ev.n_evals >= budget.max_evals:
-        exhausted = True
-    if budget.max_calls is not None and base_ev.n_calls >= budget.max_calls:
-        exhausted = True
+        recorder = None
+        exhausted = False
+        t0 = time.perf_counter()
+        try:
+            if ctx is None:
+                # Through the guard: the PHV-anchoring mesh evaluation counts
+                # against (and is forbidden by) a zero budget like any other.
+                ctx = problem.context(guarded)
+            recorder = RunRecorder(base_ev, ctx, callback=callback,
+                                   track_phv=track_phv,
+                                   keep_pareto=guard_can_fire)
+            # optimizer-only wall clock; setup excluded
+            t0 = time.perf_counter()
+            pareto, extra = entry.run_fn(problem, budget, cfg, guarded, ctx,
+                                         recorder)
+        except BudgetExhausted:
+            pareto = (recorder.pareto if recorder is not None
+                      else ParetoSet.empty())
+            extra, exhausted = {}, True
+        wall = time.perf_counter() - t0
+        # A run that consumed its whole budget reports exhausted=True whether
+        # its own check stopped it or the guard did.
+        if (budget.max_evals is not None
+                and base_ev.n_evals >= budget.max_evals):
+            exhausted = True
+        if (budget.max_calls is not None
+                and base_ev.n_calls >= budget.max_calls):
+            exhausted = True
 
-    extra = dict(extra)
-    extra.setdefault("phv",
-                     ctx.phv(pareto.objs) if ctx is not None else 0.0)
-    return RunResult(
-        optimizer=entry.name,
-        problem=problem.to_json(),
-        budget=budget.to_json(),
-        config=dataclasses.asdict(cfg),
-        obj_idx=tuple(ctx.obj_idx) if ctx is not None else problem.obj_idx,
-        designs=list(pareto.designs),
-        objs=np.asarray(pareto.objs, dtype=np.float64),
-        n_evals=base_ev.n_evals - n_evals0,
-        n_calls=base_ev.n_calls - n_calls0,
-        wall_s=wall,
-        history=(recorder.as_array() if recorder is not None
-                 else np.zeros((0, 4))),
-        extra=extra,
-        exhausted=exhausted,
-    )
+        extra = dict(extra)
+        extra.setdefault("phv",
+                         ctx.phv(pareto.objs) if ctx is not None else 0.0)
+        return RunResult(
+            optimizer=entry.name,
+            problem=problem.to_json(),
+            budget=budget.to_json(),
+            config=dataclasses.asdict(cfg),
+            obj_idx=tuple(ctx.obj_idx) if ctx is not None else problem.obj_idx,
+            designs=list(pareto.designs),
+            objs=np.asarray(pareto.objs, dtype=np.float64),
+            n_evals=base_ev.n_evals - n_evals0,
+            n_calls=base_ev.n_calls - n_calls0,
+            wall_s=wall,
+            history=(recorder.as_array() if recorder is not None
+                     else np.zeros((0, 4))),
+            extra=extra,
+            exhausted=exhausted,
+        )

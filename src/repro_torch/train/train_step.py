@@ -28,6 +28,7 @@ from ..dist import collectives as col
 from ..dist.sharding import Policy
 from ..models.common import activation_sharding
 from ..models.model import TrainModel, build_train
+from ..tracing import span
 from . import grad_compress, optimizer
 
 
@@ -147,9 +148,8 @@ def make_train_fns(model: TrainModel, mesh, policy: Policy, opt_cfg):
                     grads[i] = g.float() + e - new_e
                     e.copy_(new_e)
         gnorm = None if plan is None else global_norm(grads, paths)
-        # A profiler range, which names the optimizer's share of a traced
-        # step (a few microseconds a step without a profiler).
-        with torch.profiler.record_function("train.optimizer"):
+        # A span, which names the optimizer's share of a traced step.
+        with span("train.optimizer"):
             params, opt, stats = optimizer.apply(
                 opt_cfg, params, tree_unflatten(params, grads), state["opt"],
                 gnorm=gnorm)
