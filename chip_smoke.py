@@ -1333,6 +1333,45 @@ def twins_on_card(device="cuda") -> None:
           f"{worst:.3g}; PHV twin at m=1-4: max |diff| {phv_err:.3g}")
 
 
+def nsga2_kernel_on_card(torch, ops, ref, device="cuda") -> dict:
+    """Phase 11 (b'): the NSGA-II selection kernel against its plain twin
+    on the card, bit for bit, at the search's populations (n = 32 and the
+    union's 64, m = 5) on random and on tied rows; the kernel's device
+    time, one ``rank_and_crowding`` call between two events (copies and
+    host included), and the plain twin's time. Returns {n: (ms, call ms,
+    plain ms, bound ms, bound by)}."""
+    import numpy as np
+
+    from repro_torch.core.nsga2 import rank_and_crowding
+
+    def twin(x):
+        rank, crowd = ref.nsga2_rank_ref(x)
+        return torch.stack((rank, crowd.view(torch.int32)))
+
+    rng = np.random.default_rng(27)
+    out = {}
+    for n in (32, 64):
+        m = 5
+        rows = rng.random((n, m))
+        for objs in (rows, rng.integers(0, 4, size=(n, m))):
+            x = torch.as_tensor(objs, dtype=torch.float32, device=device)
+            check(torch.equal(ops.nsga2_rank(x), twin(x)),
+                  f"nsga2_rank at n={n}: not bit-equal to the plain twin")
+        x = torch.as_tensor(rows, dtype=torch.float32, device=device)
+        ms = time_ms(lambda: ops.nsga2_rank(x))
+        call_ms = time_ms_per_call(
+            lambda: rank_and_crowding(rows, "device", device=device))
+        plain_ms = time_ms(lambda: twin(x), reps=5, inner=3)
+        bound_ms, by = bound(4 * n * m + 8 * n, 4 * n * n * m,
+                             PEAK_FP32_INSTR)
+        out[n] = (ms, call_ms, plain_ms, bound_ms, by)
+        print(f"nsga2_rank n={n} m={m}: {ms:.4f} ms (one rank_and_crowding "
+              f"call between events {call_ms:.4f} ms; plain twin "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.7f} ms by {by}); "
+              f"bit-equal to the plain twin")
+    return out
+
+
 def agnostic_on_card(device="cuda", spec="36", apps=AGNOSTIC_APPS,
                      budget=None) -> None:
     """Phase 11 (c): the application-agnostic study (Fig. 9) on the paper's
@@ -4053,6 +4092,7 @@ def main(argv: list[str]) -> int:
     print(f"card: {card}")
     baselines_on_card(torch, ops)
     twins_on_card()
+    nsga2_kernel_on_card(torch, ops, ref)
     agnostic_on_card()
     workloads_on_card(torch, ops, ref)
     netsim_host([pick_min_edp(None, main_res.designs, main_res.objs)[0]])

@@ -8,25 +8,30 @@ budget); mutation applies the paper's neighbor moves. Evaluation is batched
 through the Evaluator — a full population is scored per device pass.
 
 Selection scoring (nondominated rank + crowding) is itself array-shaped:
-the numpy implementation is the oracle and a PyTorch twin
-(``backend="device"``) computes the O(n²·m) dominance tensor, the
+the numpy implementation is the oracle and a twin (``backend="device"``)
+computes it in f32 on a device: on a card one kernel launch
+(``ops.nsga2_rank``), on the CPU its plain PyTorch version
+(``kernels/ref.py::nsga2_rank_ref``: the O(n²·m) dominance tensor, the
 front-peeling loop, and the per-objective crowding sweeps as tensor
-operations on a device, in f32. Duplicate objective rows are tie-broken
-deterministically by index (first copy ranks first), which keeps the
-dominance relation acyclic — a front always exists and genuinely dominated
-points can never share a rank with a dominator."""
+operations). Duplicate objective rows are tie-broken deterministically by
+index (first copy ranks first), which keeps the dominance relation acyclic
+— a front always exists and genuinely dominated points can never share a
+rank with a dominator."""
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import ops
 from .evaluate import Evaluator
 from .local_search import ParetoSet, SearchHistory
 from .pareto import PhvContext
 from .problem import Design, SystemSpec, sample_neighbors
-from ..tracing import span
+from ..tracing import count, span
 
 RANK_BACKENDS = ("auto", "numpy", "device")
 
@@ -88,48 +93,44 @@ def _crowding(objs: np.ndarray) -> np.ndarray:
     return crowd
 
 
-def _rank_crowd_torch(objs: torch.Tensor):
-    """(rank, crowding) twin of the numpy pair on ``objs``' device. Peeling
-    runs n rounds (at most n fronts) without reading anything back; the
-    argsorts are stable, as numpy's ``kind="stable"`` is."""
+#: Pinned host staging for the card's selection calls, one per thread: the
+#: objective rows on their way in, then the kernel's (2, n) output.
+_staging = threading.local()
+
+
+def _rank_crowd_card(objs: np.ndarray, dev: torch.device) -> np.ndarray:
+    """The selection kernel's (2, n) i32 output for ``objs`` on the card:
+    one copy in from pinned memory, one launch, one copy back into it."""
     n, m = objs.shape
-    dev = objs.device
-    le = (objs[:, None, :] <= objs[None, :, :]).all(dim=-1)
-    lt = (objs[:, None, :] < objs[None, :, :]).any(dim=-1)
-    idx = torch.arange(n, device=dev)
-    dom = (le & lt) | (le & ~lt & (idx[:, None] < idx[None, :]))
-
-    rank = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    n_dom = dom.sum(dim=0)
-    for r in range(n):
-        front = (rank < 0) & (n_dom == 0)
-        rank = torch.where(front, r, rank)
-        n_dom = n_dom - (dom & front[:, None]).sum(dim=0)
-
-    crowd = torch.zeros(n, dtype=objs.dtype, device=dev)
-    for j in range(m):
-        order = torch.argsort(objs[:, j], stable=True)
-        col = objs[order, j]
-        rng_j = col[-1] - col[0] + 1e-12
-        contrib = torch.zeros(n, dtype=objs.dtype, device=dev)
-        if n > 2:
-            contrib[order[1:-1]] = (col[2:] - col[:-2]) / rng_j
-        crowd = crowd + contrib
-        crowd[order[0]] = float("inf")
-        crowd[order[-1]] = float("inf")
-    return rank, crowd
+    need = n * m + 2 * n
+    buf = getattr(_staging, "buf", None)
+    if buf is None or buf.numel() < need:
+        buf = _staging.buf = torch.empty(max(need, 4096), dtype=torch.int32,
+                                         pin_memory=True)
+    rows = buf[:n * m].view(torch.float32).view(n, m)
+    rows.numpy()[...] = objs
+    out = ops.nsga2_rank(rows.to(dev, non_blocking=True))
+    host = buf[n * m:need].view(2, n)
+    host.copy_(out)
+    return host.numpy().copy()
 
 
 def rank_and_crowding(objs: np.ndarray, backend: str | None = None,
                       device=None):
     """(rank, crowding) for one population on the selected backend;
-    ``"device"`` runs the f32 twin on ``device`` (default ``"cuda"``) and
-    returns f64 crowding."""
+    ``"device"`` runs the f32 twin on ``device`` (default ``"cuda"``; on a
+    card the selection kernel, ``ops.nsga2_rank``) and returns f64
+    crowding."""
     with span("noc.nsga2.rank"):
         if resolve_rank_backend(backend, device) == "device":
-            rank, crowd = _rank_crowd_torch(torch.as_tensor(
-                np.asarray(objs, np.float32), device=resolve_device(device)))
-            return rank.cpu().numpy(), crowd.cpu().numpy().astype(np.float64)
+            dev = resolve_device(device)
+            if dev.type == "cuda":
+                count("noc.nsga2.rank.kernel")
+                out = _rank_crowd_card(objs, dev)
+            else:
+                out = ops.nsga2_rank(torch.as_tensor(
+                    np.asarray(objs, np.float32), device=dev)).numpy()
+            return out[0], out[1].view(np.float32).astype(np.float64)
         return _fast_nondominated_rank(objs), _crowding(objs)
 
 

@@ -20,9 +20,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("minplus", "forest", "walk", "flash_attention", "ssd")
-#: The sources of the NoC kernels K1-K4, which every search on a card runs.
-NOC_SOURCES = ("minplus", "forest", "walk")
+SOURCES = ("minplus", "forest", "walk", "flash_attention", "ssd", "nsga2")
+#: The sources of the NoC kernels K1-K4 and of NSGA-II's selection, which
+#: the searches on a card run.
+NOC_SOURCES = ("minplus", "forest", "walk", "nsga2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

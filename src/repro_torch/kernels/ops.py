@@ -63,6 +63,10 @@ KERNELS = {k.name: k for k in (
            "src/repro/kernels/flash_attention.py:82"),
     Kernel("ssd", "src/repro_torch/csrc/ssd.cu",
            "src/repro/kernels/ssd.py:76"),
+    # The reference's jitted jnp twin of NSGA-II's selection scoring, not a
+    # Pallas kernel.
+    Kernel("nsga2_rank", "src/repro_torch/csrc/nsga2.cu",
+           "src/repro/core/nsga2.py:90"),
 )}
 
 _SIGS = {
@@ -75,6 +79,7 @@ _SIGS = {
                                [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F]
                                + [_I] * 2 + [_P]),
     "ssd_launch": ("ssd", [_P] * 8 + [_I] * 6 + [_P]),
+    "nsga2_rank_launch": ("nsga2", [_P, _I, _I, _P, _P, _P]),
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -481,6 +486,53 @@ def walk(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
                 dsum.data_ptr(), util.data_ptr(), visits.data_ptr(),
                 done.data_ptr(), scratch.data_ptr())
     return hops, dsum, util, visits, done
+
+
+# -------------------------------------------------------------- NSGA-II
+#: Largest workspace (bytes) the selection kernel keeps in shared memory;
+#: above it (n > ~400 rows at m = 5) the same kernel works in a global
+#: scratch buffer.
+NSGA2_SMEM_MAX = 48 * 1024
+
+
+def nsga2_workspace_words(n: int, m: int) -> int:
+    """32-bit words of the selection kernel's workspace: the objectives by
+    column, each row's place and each place's row per objective, the
+    dominance bits, the ranked rows' bits and the ranks."""
+    words = -(-n // 32)
+    return 3 * n * m + n * words + words + n
+
+
+def nsga2_rank(objs: torch.Tensor) -> torch.Tensor:
+    """NSGA-II's nondominated rank and crowding distance of the (n, m) f32
+    objective rows, as one (2, n) i32 tensor: row 0 the ranks, row 1 the
+    crowding distances' f32 bits (``out[1].view(torch.float32)``).
+
+    On the card one launch computes what ``ref.nsga2_rank_ref`` computes,
+    the crowding bit for bit; its workspace is in shared memory up to
+    :data:`NSGA2_SMEM_MAX` bytes and in a global scratch buffer above."""
+    on_card = _on_cuda(objs)
+    if objs.dim() != 2 or objs.dtype != torch.float32:
+        raise ValueError(f"objs: expected (n, m) f32 rows, got {objs.dtype} "
+                         f"{tuple(objs.shape)}")
+    if not on_card:
+        rank, crowd = ref.nsga2_rank_ref(objs)
+        return torch.stack((rank, crowd.view(torch.int32)))
+    n, m = objs.shape
+    _check(objs, "objs", torch.float32, (n, m))
+    dev = objs.device
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    words = nsga2_workspace_words(n, m)
+    scratch = (None if 4 * words <= NSGA2_SMEM_MAX else
+               torch.empty(words, dtype=torch.int32, device=dev))
+    # Two compares per (row, row, objective) for the dominance and two for
+    # the places; the rows read once, rank and crowding written once.
+    _work("nsga2_rank", 4 * n * n * m, 4 * n * m + 8 * n, "f32")
+    if n:
+        _launch("nsga2_rank", "nsga2_rank_launch", dev, objs.data_ptr(), n, m,
+                None if scratch is None else scratch.data_ptr(),
+                out.data_ptr())
+    return out
 
 
 # ------------------------------------------------------------------- K5

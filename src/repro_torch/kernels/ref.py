@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six CUDA kernels.
+"""Plain PyTorch versions of the seven CUDA kernels.
 
 The kernel wrappers in :mod:`repro_torch.kernels.ops` run these for tensors
 on the CPU; ``chip_smoke.py`` calls them directly on CUDA tensors to hold
@@ -172,6 +172,38 @@ def walk_ref(nh: torch.Tensor, f: torch.Tensor, delay: torch.Tensor,
 
 # ------------------------------------------------------------------- K5
 NEG_INF = -1.0e30
+
+
+def nsga2_rank_ref(objs: torch.Tensor):
+    """(rank, crowding) twin of the numpy pair on ``objs``' device. Peeling
+    runs n rounds (at most n fronts) without reading anything back; the
+    argsorts are stable, as numpy's ``kind="stable"`` is."""
+    n, m = objs.shape
+    dev = objs.device
+    le = (objs[:, None, :] <= objs[None, :, :]).all(dim=-1)
+    lt = (objs[:, None, :] < objs[None, :, :]).any(dim=-1)
+    idx = torch.arange(n, device=dev)
+    dom = (le & lt) | (le & ~lt & (idx[:, None] < idx[None, :]))
+
+    rank = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    n_dom = dom.sum(dim=0)
+    for r in range(n):
+        front = (rank < 0) & (n_dom == 0)
+        rank = torch.where(front, r, rank)
+        n_dom = n_dom - (dom & front[:, None]).sum(dim=0)
+
+    crowd = torch.zeros(n, dtype=objs.dtype, device=dev)
+    for j in range(m):
+        order = torch.argsort(objs[:, j], stable=True)
+        col = objs[order, j]
+        rng_j = col[-1] - col[0] + 1e-12
+        contrib = torch.zeros(n, dtype=objs.dtype, device=dev)
+        if n > 2:
+            contrib[order[1:-1]] = (col[2:] - col[:-2]) / rng_j
+        crowd = crowd + contrib
+        crowd[order[0]] = float("inf")
+        crowd[order[-1]] = float("inf")
+    return rank, crowd
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -270,6 +270,93 @@ def test_nsga2_device_rank_backend_runs_on_the_cpu(tiny_problem):
     _nondominated(ps.objs, ctx.obj_idx)
 
 
+def _rank_cases(count=20):
+    """The rank twin's cases above: 2-64 rows of 1-4 small-integer
+    objectives (many duplicate rows and column ties)."""
+    rng = np.random.default_rng(0)
+    for _ in range(count):
+        n = int(rng.integers(2, 65))
+        m = int(rng.integers(1, 5))
+        yield rng.integers(0, 4, size=(n, m)).astype(np.float64)
+
+
+def test_nsga2_rank_wrapper_runs_the_plain_version_on_the_cpu():
+    """``ops.nsga2_rank`` on CPU rows is the plain twin, packed as (2, n)
+    i32: the numpy oracle's ranks, the twin's crowding bits; no launch."""
+    from repro_torch.kernels import ops, ref
+
+    before = ops.launches()["nsga2_rank"]
+    for objs in _rank_cases():
+        x = torch.as_tensor(objs, dtype=torch.float32)
+        out = ops.nsga2_rank(x)
+        assert out.dtype == torch.int32 and out.shape == (2, len(objs))
+        assert np.array_equal(out[0].numpy(), _fast_nondominated_rank(objs))
+        rank, crowd = ref.nsga2_rank_ref(x)
+        assert torch.equal(out[0], rank)
+        assert torch.equal(out[1], crowd.view(torch.int32))
+    assert ops.launches()["nsga2_rank"] == before
+
+
+def test_nsga2_rank_wrapper_refuses_other_devices_and_shapes():
+    from repro_torch.kernels import ops
+
+    x = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        ops.nsga2_rank(x.to("meta"))
+    with pytest.raises(ValueError, match=r"\(n, m\) f32 rows"):
+        ops.nsga2_rank(x.double())
+    with pytest.raises(ValueError, match=r"\(n, m\) f32 rows"):
+        ops.nsga2_rank(x[0])
+
+
+@pytest.mark.parametrize("n", [32, 64, 2000])
+def test_nsga2_rank_on_meta_takes_the_cards_path(n):
+    """Inside a work log meta rows take the card's path: a (2, n) i32
+    result on meta, one record of the kernel's work, no launch. The
+    search's populations (32, 64 at m = 5) keep the workspace in shared
+    memory; 2000 rows need the global scratch buffer."""
+    from repro_torch.kernels import ops
+
+    before = ops.launches()["nsga2_rank"]
+    with ops.work_log([]) as log:
+        out = ops.nsga2_rank(torch.empty((n, 5), device="meta"))
+    assert out.device.type == "meta" and out.shape == (2, n)
+    assert out.dtype == torch.int32
+    assert [w.kernel for w in log] == ["nsga2_rank"]
+    assert log[0].bytes == 4 * n * 5 + 8 * n
+    assert ops.launches()["nsga2_rank"] == before
+    in_smem = 4 * ops.nsga2_workspace_words(n, 5) <= ops.NSGA2_SMEM_MAX
+    assert in_smem == (n <= 64)
+
+
+def test_nsga2_kernel_is_built_with_the_noc_kernels():
+    """The benchmark and the fleet load ``build.NOC_SOURCES`` before a
+    search, so the selection kernel is built outside any timed call."""
+    from repro_torch.kernels import build, ops
+
+    assert "nsga2" in build.NOC_SOURCES and "nsga2" in build.SOURCES
+    assert (build.CSRC / "nsga2.cu").exists()
+    kern = ops.KERNELS["nsga2_rank"]
+    assert kern.source == "src/repro_torch/csrc/nsga2.cu"
+    assert (ROOT / kern.source).exists()
+    assert kern.replaces == "src/repro/core/nsga2.py:90"
+    smem_max = f"kSmemMax = {ops.NSGA2_SMEM_MAX // 1024} * 1024"
+    assert smem_max in (build.CSRC / "nsga2.cu").read_text()
+
+
+def test_the_kernel_counter_stays_zero_on_the_cpu():
+    """``noc.nsga2.rank.kernel`` counts the selection calls the card's
+    kernel serves: none on the CPU, even with the device twin."""
+    from repro_torch import tracing
+
+    with tracing.recording():
+        run(NocProblem(spec=named_spec("tiny")), "nsga2", Budget(max_evals=60),
+            config={"pop_size": 8, "rank_backend": "device"}, device="cpu")
+    rec = tracing.runs()[-1]
+    assert rec["spans"]["noc.nsga2.rank"][0] >= 2
+    assert "noc.nsga2.rank.kernel" not in rec["counts"]
+
+
 # -------------------------------------------------------- the PHV twin
 @pytest.mark.parametrize("m", [1, 2, 3, 4])
 def test_phv_twin_conforms(m):

@@ -1,7 +1,8 @@
 """Kernels of the port on the card: each against its plain version on the
 same CUDA tensors, the evaluator on the card against the CPU, the two
 device twins (NSGA-II rank/crowding, batched PHV) on the card against the
-host, the multi-start search on the card against the CPU, the trace link
+host, the NSGA-II selection kernel against its plain twin on the card bit
+for bit (alone and inside a spec64 search), the multi-start search on the card against the CPU, the trace link
 report's K4 against its plain version, the smoke-size hybrid served on
 the card against the CPU, the MoE FFN and whisper's smoke config on the
 card against the CPU, the fleet (``stage_dist``): the ``cuda``
@@ -423,6 +424,139 @@ def test_rank_twin_on_card_matches_numpy(dev):
         fin = np.isfinite(c_np)
         assert np.array_equal(fin, np.isfinite(c_d))
         np.testing.assert_allclose(c_d[fin], c_np[fin], rtol=1e-5, atol=1e-6)
+
+
+def _twin_packed(x):
+    """The plain twin on ``x``'s device, packed as the kernel's output."""
+    rank, crowd = ref.nsga2_rank_ref(x)
+    return torch.stack((rank, crowd.view(torch.int32)))
+
+
+def _assert_kernel_bit_equal_twin(x, label):
+    got = ops.nsga2_rank(x)
+    want = _twin_packed(x)
+    assert torch.equal(got[0], want[0]), label
+    # The crowding's f32 bits: inf and NaN positions (and payloads) too.
+    assert np.array_equal(got[1].cpu().numpy(), want[1].cpu().numpy()), label
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 32, 33, 64, 65, 257, 1024, 2000])
+def test_nsga2_rank_kernel_bit_equal_plain(dev, n):
+    """The selection kernel against the plain twin on the card, m = 1..5:
+    rows of small integers (duplicate rows, column ties), some rows all
+    inf, some cells inf (inf - inf makes NaN crowding). n = 1024 and 2000
+    take the global workspace; one launch a call."""
+    rng = np.random.default_rng(n)
+    before = ops.launches()["nsga2_rank"]
+    calls = 0
+    for m in range(1, 6):
+        ints = rng.integers(0, 4, size=(n, m)).astype(np.float32)
+        inf_rows = ints.copy()
+        inf_rows[rng.random(n) < 0.2] = np.inf
+        inf_cells = ints.copy()
+        inf_cells[rng.random((n, m)) < 0.1] = np.inf
+        for kind, objs in (("ints", ints), ("inf rows", inf_rows),
+                           ("inf cells", inf_cells)):
+            _assert_kernel_bit_equal_twin(torch.as_tensor(objs, device=dev),
+                                          (n, m, kind))
+            calls += 1
+    assert ops.launches()["nsga2_rank"] - before == calls
+
+
+@pytest.fixture(scope="module")
+def nsga2_spec64():
+    """Two short NSGA-II searches on spec64/BFS on the card (pop 32, 300
+    evaluations): selection through the kernel, and through the plain twin
+    on the card; each with the rows of every selection call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    problem = NocProblem(spec=named_spec("64"), traffic="BFS", case="case5")
+    runs = {}
+    for name, fn in (("kernel", ops.nsga2_rank), ("twin", _twin_packed)):
+        seen = []
+
+        def scored(x, fn=fn, seen=seen):
+            seen.append(x.cpu())
+            return fn(x)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ops, "nsga2_rank", scored)
+            res = run(problem, "nsga2", Budget(max_evals=300),
+                      config={"pop_size": 32}, device="cuda")
+        runs[name] = (res, seen)
+    return runs
+
+
+def test_nsga2_rank_kernel_bit_equal_plain_on_a_search(nsga2_spec64):
+    """The population (32) and union (64) matrices of a real spec64/BFS
+    search, kernel against the twin on the card."""
+    _, seen = nsga2_spec64["kernel"]
+    assert {tuple(x.shape) for x in seen} == {(32, 5), (64, 5)}
+    for i, x in enumerate(seen):
+        _assert_kernel_bit_equal_twin(x.cuda(), (i, tuple(x.shape)))
+
+
+def test_nsga2_search_same_front_through_kernel_and_twin(nsga2_spec64):
+    """Selection through the kernel takes the twin's decisions: the same
+    selection inputs call by call, the same front and accounting."""
+    (res_k, seen_k), (res_t, seen_t) = (nsga2_spec64["kernel"],
+                                        nsga2_spec64["twin"])
+    assert len(seen_k) == len(seen_t) > 2
+    assert all(torch.equal(a, b) for a, b in zip(seen_k, seen_t))
+    assert np.array_equal(res_k.objs, res_t.objs)
+    assert (res_k.n_evals, res_k.n_calls) == (res_t.n_evals, res_t.n_calls)
+
+
+def test_rank_and_crowding_on_card_is_one_copy_in_one_launch_one_copy_out(
+        dev):
+    """``rank_and_crowding(..., "device")`` on the card: one nsga2_rank
+    launch a call and no other kernel, one copy each way (torch.profiler,
+    after a throwaway session), the rows all through the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.nsga2 import rank_and_crowding
+
+    rng = np.random.default_rng(7)
+    pops = [rng.random((n, 5)) for n in (32, 64, 32, 64)]
+    before = ops.launches()["nsga2_rank"]
+    for objs in pops:
+        rank_and_crowding(objs, "device", device=dev)
+    assert ops.launches()["nsga2_rank"] - before == len(pops)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        rank_and_crowding(pops[0], "device", device=dev)
+    with profile(activities=activities) as prof:
+        for objs in pops:
+            rank_and_crowding(objs, "device", device=dev)
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    on_card = [e.name for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in host]
+    copies = [n for n in on_card if n.startswith("Memcpy")]
+    kernels = [n for n in on_card if not n.startswith("Memcpy")]
+    assert len(kernels) == len(pops), kernels
+    assert all("nsga2_rank_kernel" in n for n in kernels), kernels
+    assert len(copies) == 2 * len(pops), copies
+
+
+def test_the_kernel_counter_counts_every_selection_call(dev):
+    """Under ``recording()``, ``noc.nsga2.rank.kernel`` equals the calls of
+    the ``noc.nsga2.rank`` span: every selection call took the kernel."""
+    from repro_torch import tracing
+    from repro_torch.noc import Budget, NocProblem, named_spec, run
+
+    with tracing.recording():
+        run(NocProblem(spec=named_spec("16"), traffic="BFS"), "nsga2",
+            Budget(max_evals=100), config={"pop_size": 8}, device="cuda")
+    rec = tracing.runs()[-1]
+    calls = rec["spans"]["noc.nsga2.rank"][0]
+    assert calls >= 2
+    assert rec["counts"]["noc.nsga2.rank.kernel"] == calls
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 4])
