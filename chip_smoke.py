@@ -33,7 +33,8 @@ each raising on failure:
      accounting, or part at a knife-edge: the same designs up to the
      parting, rows within rtol 1e-5, and the card run replayed on the
      CPU's rows is the CPU run bit for bit (``repro_torch.noc.parity``);
-  5. the evaluator's delta path on the card, bit-equal to the dense path;
+  5. the evaluator's delta path on the card, bit-equal to the dense path,
+     three neighbourhoods each on spec_64 and spec_large (N = 256);
   6. each kernel timed at its main-path shapes beside its plain version and
      its bound, printed as one JSON ``kernels`` line; K1–K4 also by the
      profiler's device time per call, which below ~20 us is the honest
@@ -1109,6 +1110,31 @@ def random_graphs(torch, rng, bsz: int, n: int, p_edge: float, dev):
 #: Objective rows on the card against the CPU (K4's order and PyTorch's
 #: reductions against the plain versions): relative tolerance.
 ROW_RTOL = 1e-5
+
+
+def delta_on_card(spec, rng, n_moves: int = 3) -> None:
+    """Phase 5 on ``spec``: ``n_moves`` neighbourhoods of 24 swaps and 24
+    link moves under BFS, each from the last one's last link move, through
+    the evaluator's delta path (host tables) and its dense path on the
+    card, the rows bit-equal."""
+    import numpy as np
+
+    from repro_torch.core.evaluate import Evaluator
+    from repro_torch.core.problem import sample_neighbor_moves
+    from repro_torch.core.traffic import traffic_matrix
+
+    f = traffic_matrix(spec, "BFS")
+    ev_on = Evaluator(spec, f, delta="on", device="cuda")
+    ev_off = Evaluator(spec, f, delta="off", device="cuda")
+    base = spec.mesh_design()
+    for k in range(n_moves):
+        mv = sample_neighbor_moves(spec, base, rng, 24, 24)
+        check(np.array_equal(ev_on.batch_moves(mv), ev_off.batch_moves(mv)),
+              f"N={spec.n_tiles} neighbourhood {k}: delta on differs from "
+              "delta off")
+        base = mv.materialize(len(mv) - 1)
+    print(f"N={spec.n_tiles}: {n_moves} neighbourhoods bit-equal; delta "
+          f"stats {ev_on.delta_stats}")
 
 
 def launches_of(ops) -> dict:
@@ -3782,9 +3808,8 @@ def main(argv: list[str]) -> int:
     from repro_torch.core.evaluate import Evaluator
     from repro_torch.core.objectives import (design_cost, design_cost_np,
                                              make_consts)
-    from repro_torch.core.problem import (random_design, sample_neighbor_moves,
-                                          spec_16, spec_64, spec_large)
-    from repro_torch.core.traffic import traffic_matrix
+    from repro_torch.core.problem import (random_design, spec_16, spec_64,
+                                          spec_large)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.noc import Budget, NocProblem, RunResult, named_spec, run
 
@@ -3960,16 +3985,8 @@ def main(argv: list[str]) -> int:
 
     # ------------------------------------------------------------- phase 5
     phase("5 delta path on the card")
-    f64 = traffic_matrix(spec, "BFS")
-    ev_on = Evaluator(spec, f64, delta="on", device="cuda")
-    ev_off = Evaluator(spec, f64, delta="off", device="cuda")
-    base = spec.mesh_design()
-    for k in range(3):
-        mv = sample_neighbor_moves(spec, base, rng, 24, 24)
-        check(np.array_equal(ev_on.batch_moves(mv), ev_off.batch_moves(mv)),
-              f"neighbourhood {k}: delta on differs from delta off")
-        base = mv.materialize(len(mv) - 1)
-    print(f"3 neighbourhoods bit-equal; delta stats {ev_on.delta_stats}")
+    for spec_k in (spec, spec_large()):
+        delta_on_card(spec_k, rng)
 
     # ------------------------------------------------------------- phase 6
     phase("6 timing at main-path shapes")

@@ -31,7 +31,7 @@ from . import routing
 from .objectives import (N_OBJ, SpecConsts, design_cost, design_cost_np,
                          evaluate_with_tables, make_consts)
 from .problem import Design, NeighborMoves, SystemSpec
-from ..tracing import span
+from ..tracing import count, span
 
 DELTA_MODES = ("auto", "on", "off")
 
@@ -165,7 +165,12 @@ class Evaluator:
         base tables unchanged, link moves pay one O(N²) incremental update
         (full host recompute as fallback), and only the objective walk runs
         on the device. Both paths are bit-equal — see routing's host-mirror
-        exactness note."""
+        exactness note. Traced (:mod:`repro_torch.tracing`), the host table
+        work is the span ``noc.eval.delta``, each full recompute the span
+        ``noc.eval.rebuild`` inside it; the counters ``noc.delta.swap``,
+        ``.link`` (fallbacks included), ``.fallback``, ``.table_hit`` and
+        ``.table_miss`` follow ``delta_stats``, and ``noc.delta.served``
+        counts the candidates this method serves."""
         mvs = [moves] if isinstance(moves, NeighborMoves) else list(moves)
         mvs = [m for m in mvs if len(m)]
         if not mvs:
@@ -175,28 +180,31 @@ class Evaluator:
                 designs = [d for m in mvs for d in m.materialize_all()]
             return self.batch(designs)
         perms, adjs, dists, nhs = [], [], [], []
-        for mv in mvs:
-            t0 = self._host_tables(mv.base)
-            for s in range(mv.swaps.shape[0]):
-                a, b = int(mv.swaps[s, 0]), int(mv.swaps[s, 1])
-                p = mv.base.perm.copy()
-                p[a], p[b] = p[b], p[a]
-                perms.append(p)
-                adjs.append(mv.base.adj)
-                dists.append(t0.dist)
-                nhs.append(t0.nh)
-                self.delta_stats["swap"] += 1
-            for k in range(mv.rem.shape[0]):
-                rem = (int(mv.rem[k, 0]), int(mv.rem[k, 1]))
-                add = (int(mv.add[k, 0]), int(mv.add[k, 1]))
-                t = self._moved_tables(t0, rem, add)
-                adj2 = mv.base.adj.copy()
-                adj2[rem[0], rem[1]] = adj2[rem[1], rem[0]] = False
-                adj2[add[0], add[1]] = adj2[add[1], add[0]] = True
-                perms.append(mv.base.perm)
-                adjs.append(adj2)
-                dists.append(t.dist)
-                nhs.append(t.nh)
+        with span("noc.eval.delta"):
+            for mv in mvs:
+                t0 = self._host_tables(mv.base)
+                for s in range(mv.swaps.shape[0]):
+                    a, b = int(mv.swaps[s, 0]), int(mv.swaps[s, 1])
+                    p = mv.base.perm.copy()
+                    p[a], p[b] = p[b], p[a]
+                    perms.append(p)
+                    adjs.append(mv.base.adj)
+                    dists.append(t0.dist)
+                    nhs.append(t0.nh)
+                self.delta_stats["swap"] += mv.swaps.shape[0]
+                count("noc.delta.swap", mv.swaps.shape[0])
+                for k in range(mv.rem.shape[0]):
+                    rem = (int(mv.rem[k, 0]), int(mv.rem[k, 1]))
+                    add = (int(mv.add[k, 0]), int(mv.add[k, 1]))
+                    t = self._moved_tables(t0, rem, add)
+                    adj2 = mv.base.adj.copy()
+                    adj2[rem[0], rem[1]] = adj2[rem[1], rem[0]] = False
+                    adj2[add[0], add[1]] = adj2[add[1], add[0]] = True
+                    perms.append(mv.base.perm)
+                    adjs.append(adj2)
+                    dists.append(t.dist)
+                    nhs.append(t.nh)
+            count("noc.delta.served", len(perms))
         return self._eval_from_tables(perms, adjs, dists, nhs)
 
     def note_accept(self, mv: NeighborMoves, j: int) -> None:
@@ -216,11 +224,12 @@ class Evaluator:
         adj2[rem[0], rem[1]] = adj2[rem[1], rem[0]] = False
         adj2[add[0], add[1]] = adj2[add[1], add[0]] = True
         key = np.packbits(adj2).tobytes()
-        if key in self._tab_cache:
-            self._tab_cache.move_to_end(key)
-            return
-        t = self._moved_tables(self._host_tables(mv.base), rem, add)
-        self._tab_put(key, t)
+        with span("noc.eval.delta"):
+            if key in self._tab_cache:
+                self._tab_cache.move_to_end(key)
+                return
+            t = self._moved_tables(self._host_tables(mv.base), rem, add)
+            self._tab_put(key, t)
 
     def _host_tables(self, base: Design) -> routing.HostTables:
         key = np.packbits(base.adj).tobytes()
@@ -228,10 +237,13 @@ class Evaluator:
         if t is not None:
             self._tab_cache.move_to_end(key)
             self.delta_stats["table_hits"] += 1
+            count("noc.delta.table_hit")
             return t
         self.delta_stats["table_misses"] += 1
-        t = routing.host_tables(design_cost_np(self.spec, base.adj),
-                                self.consts.apsp_iters)
+        count("noc.delta.table_miss")
+        with span("noc.eval.rebuild"):
+            t = routing.host_tables(design_cost_np(self.spec, base.adj),
+                                    self.consts.apsp_iters)
         self._tab_put(key, t)
         return t
 
@@ -240,12 +252,15 @@ class Evaluator:
         w = (np.float32(self.spec.router_stages)
              + np.float32(self.spec.link_delay[add[0], add[1]]))
         t = routing.delta_link_move(t0, rem, add, w)
+        count("noc.delta.link")
         if t is None:
             self.delta_stats["fallback"] += 1
+            count("noc.delta.fallback")
             cost2 = t0.cost.copy()
             cost2[rem[0], rem[1]] = cost2[rem[1], rem[0]] = np.float32(routing.INF)
             cost2[add[0], add[1]] = cost2[add[1], add[0]] = w
-            return routing.host_tables(cost2, self.consts.apsp_iters)
+            with span("noc.eval.rebuild"):
+                return routing.host_tables(cost2, self.consts.apsp_iters)
         self.delta_stats["delta"] += 1
         return t
 

@@ -927,3 +927,78 @@ def test_score_block_max_raises_on_a_side_stream(dev):
                                                 match="default stream"):
         scorer.score_moves(moves)
     assert scorer.score_moves(moves) == (j, v)
+
+
+@pytest.fixture(scope="module")
+def stage_spec_large():
+    """Two MOO-STAGE searches of 200 evaluations on spec_large (N = 256)
+    under BFS on the card, the evaluator's delta path on and off, each
+    under ``tracing.recording()``: (result, evaluator, record) by mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import tracing
+    from repro_torch.noc import Budget, NocProblem, run
+
+    problem = NocProblem(spec=spec_large(), traffic="BFS", case="case5")
+    out = {}
+    for delta in ("on", "off"):
+        ev = problem.evaluator(device="cuda", delta=delta)
+        with tracing.recording():
+            res = run(problem, "stage", Budget(max_evals=200, seed=7),
+                      {"max_local_steps": 40}, ev=ev, device="cuda")
+        out[delta] = (res, ev, tracing.runs()[-1])
+    return out
+
+
+def test_spec_large_search_same_front_with_delta_on_and_off(
+        stage_spec_large):
+    """At N = 256 the delta path's host tables (swaps' reuse, link moves'
+    updates, rebuilds) give the dense path's rows bit for bit: the same
+    front and accounting, and counters equal to ``delta_stats``."""
+    (on, ev_on, rec_on), (off, ev_off, rec_off) = (stage_spec_large["on"],
+                                                   stage_spec_large["off"])
+    assert ev_on.max_batch == ev_off.max_batch == 8
+    stats = ev_on.delta_stats
+    assert stats["swap"] > 0 and stats["delta"] > 0
+    assert [d.key() for d in on.designs] == [d.key() for d in off.designs]
+    assert np.array_equal(on.objs, off.objs)
+    assert (on.n_evals, on.n_calls) == (off.n_evals, off.n_calls)
+    counts = rec_on["counts"]
+    assert tuple(counts.get(f"noc.delta.{c}", 0) for c in (
+        "swap", "link", "fallback", "table_hit", "table_miss")) == (
+        stats["swap"], stats["delta"] + stats["fallback"], stats["fallback"],
+        stats["table_hits"], stats["table_misses"])
+    assert stats["swap"] < counts["noc.delta.served"] <= on.n_evals
+    assert {"noc.eval.delta", "noc.eval.rebuild"} <= set(rec_on["spans"])
+    assert not {"noc.eval.delta", "noc.eval.rebuild"} & set(rec_off["spans"])
+    assert ev_off.delta_stats == dict.fromkeys(stats, 0)
+
+
+def test_spec_large_dense_call_takes_k1s_per_product_path(dev):
+    """An evaluator call at N = 256 (above ``ops.APSP_MAX_N``) runs K1 as
+    one min-plus product per squaring, as the profiler counts them, and
+    never the one-launch APSP kernel; its rows are the CPU's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = spec_large()
+    f = traffic_matrix(spec, "BFS")
+    rng = np.random.default_rng(11)
+    designs = [spec.mesh_design()] + [random_design(spec, rng)
+                                      for _ in range(7)]
+    ev = Evaluator(spec, f, device="cuda", delta="off")
+    assert spec.n_tiles > ops.APSP_MAX_N and ev.max_batch == len(designs)
+    ev.batch(designs)                                  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rows = ev.batch(designs)
+        torch.cuda.synchronize()
+    launches = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            launches[e.key] = launches.get(e.key, 0) + e.count
+    minplus = sum(c for k, c in launches.items() if "minplus_kernel" in k)
+    assert minplus == routing.apsp_iters(spec.n_tiles)
+    assert not [k for k in launches if "apsp_kernel" in k]
+    cpu = Evaluator(spec, f, device="cpu", delta="off").batch(designs)
+    np.testing.assert_allclose(rows, cpu, rtol=1e-5, atol=0)
