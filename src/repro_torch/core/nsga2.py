@@ -30,7 +30,8 @@ from ..kernels import ops
 from .evaluate import Evaluator
 from .local_search import ParetoSet, SearchHistory
 from .pareto import PhvContext
-from .problem import Design, SystemSpec, sample_neighbors
+from .problem import (Design, SystemSpec, _triu_pairs, draw_neighbor_moves,
+                      sample_neighbors)
 from ..tracing import count, span
 
 RANK_BACKENDS = ("auto", "numpy", "device")
@@ -134,29 +135,66 @@ def rank_and_crowding(objs: np.ndarray, backend: str | None = None,
         return _fast_nondominated_rank(objs), _crowding(objs)
 
 
-def _crossover(spec: SystemSpec, a: Design, b: Design,
-               rng: np.random.Generator) -> Design:
+def _vary(spec: SystemSpec, pop: list[Design], rank: np.ndarray,
+          crowd: np.ndarray, rng: np.random.Generator,
+          p_mutate: float) -> list[Design]:
+    """One generation's ``len(pop)`` children, built in one pass over the
+    population's rows: placements (P, N) and planar links as
+    upper-triangle rows (P, N(N-1)/2) in ``_triu_pairs`` order. Per child:
+    two binary tournaments (lower rank, then larger crowding), crossover,
+    and with probability ``p_mutate`` one neighbor move. The generator sees
+    the calls of the reference's per-child loop (``_crossover``, then
+    ``sample_neighbors(spec, child, rng, 1, 1)`` and a uniform pick) in the
+    same order, so the children are that loop's bit for bit; only the
+    picked move is applied, on the child's rows."""
     n = spec.n_tiles
-    # Placement: copy a then graft a random segment of b, repairing to a perm.
-    child = a.perm.copy()
-    lo, hi = sorted(rng.choice(n, size=2, replace=False))
-    seg = b.perm[lo:hi]
-    rest = [c for c in a.perm if c not in set(seg.tolist())]
-    child[lo:hi] = seg
-    child[:lo] = rest[:lo]
-    child[hi:] = rest[lo:]
-    # Links: union, keep budget many (prefer common links).
-    iu = np.triu_indices(n, 1)
-    both = a.adj[iu] & b.adj[iu]
-    either = (a.adj[iu] | b.adj[iu]) & ~both
-    need = spec.n_planar_links - int(both.sum())
-    pick = np.flatnonzero(either)
-    rng.shuffle(pick)
-    sel = both.copy()
-    sel[pick[:need]] = True
-    adj = np.zeros((n, n), dtype=bool)
-    adj[iu[0][sel], iu[1][sel]] = True
-    return Design(perm=child.astype(np.int32), adj=adj | adj.T)
+    iu0, iu1 = _triu_pairs(n)
+    perms = np.stack([d.perm for d in pop])
+    links = np.stack([d.adj for d in pop]).reshape(len(pop), n * n)[
+        :, iu0 * n + iu1]
+    child_perms = np.empty((len(pop), n), np.int32)
+    child_links = np.empty((len(pop), iu0.size), bool)
+    rk, cw = rank.tolist(), crowd.tolist()
+
+    def tournament():
+        i, j = rng.integers(len(pop), size=2)
+        if rk[i] < rk[j] or (rk[i] == rk[j] and cw[i] > cw[j]):
+            return i
+        return j
+
+    for child, row in zip(child_perms, child_links):
+        ia, ib = tournament(), tournament()
+        # Placement: a random segment of b grafted into a, the rest of a
+        # kept in order, so the child stays a permutation.
+        lo, hi = sorted(rng.choice(n, size=2, replace=False))
+        seg = perms[ib, lo:hi]
+        inseg = np.zeros(n, dtype=bool)
+        inseg[seg] = True
+        rest = perms[ia][~inseg[perms[ia]]]
+        child[:lo] = rest[:lo]
+        child[lo:hi] = seg
+        child[hi:] = rest[lo:]
+        # Links: those both parents have, then a shuffled pick of those
+        # only one has, up to the link budget.
+        np.bitwise_and(links[ia], links[ib], out=row)
+        need = spec.n_planar_links - int(np.count_nonzero(row))
+        pick = np.flatnonzero(links[ia] ^ links[ib])
+        rng.shuffle(pick)
+        row[pick[:need]] = True
+        if rng.random() < p_mutate:
+            swaps, ri, ai = draw_neighbor_moves(spec, child, row, rng, 1, 1)
+            if len(swaps) + len(ri):
+                j = rng.integers(len(swaps) + len(ri))
+                if j < len(swaps):
+                    s, t = swaps[j]
+                    child[s], child[t] = child[t], child[s]
+                else:
+                    row[ri[j - len(swaps)]] = False
+                    row[ai[j - len(swaps)]] = True
+    adj = np.zeros((len(pop), n, n), dtype=bool)
+    adj[:, iu0, iu1] = child_links
+    adj = adj | adj.transpose(0, 2, 1)
+    return [Design(perm=p, adj=a) for p, a in zip(child_perms, adj)]
 
 
 def nsga2(
@@ -192,21 +230,8 @@ def nsga2(
         sub = objs[:, list(ctx.obj_idx)]
         rank, crowd = rank_and_crowding(sub, rank_backend, device)
 
-        def tournament():
-            i, j = rng.integers(len(pop), size=2)
-            if rank[i] < rank[j] or (rank[i] == rank[j] and crowd[i] > crowd[j]):
-                return pop[i]
-            return pop[j]
-
         with span("noc.nsga2.vary"):
-            children: list[Design] = []
-            while len(children) < pop_size:
-                c = _crossover(spec, tournament(), tournament(), rng)
-                if rng.random() < p_mutate:
-                    nb = sample_neighbors(spec, c, rng, 1, 1)
-                    if nb:
-                        c = nb[rng.integers(len(nb))]
-                children.append(c)
+            children = _vary(spec, pop, rank, crowd, rng, p_mutate)
         child_objs = ev.batch(children)
         for d, o in zip(children, child_objs):
             history.record(ev, d, o)

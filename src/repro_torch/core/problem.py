@@ -240,6 +240,16 @@ def _triu_pairs(n: int) -> tuple[np.ndarray, np.ndarray]:
     return iu[0], iu[1]
 
 
+@lru_cache(maxsize=16)
+def _planar_pair_row(spec: SystemSpec) -> np.ndarray:
+    """Cached ``spec.planar_pair_mask`` over the upper triangle, in
+    ``_triu_pairs`` order: the row form of a design's planar links."""
+    iu0, iu1 = _triu_pairs(spec.n_tiles)
+    row = spec.planar_pair_mask[iu0, iu1]
+    row.flags.writeable = False
+    return row
+
+
 def existing_planar_links(spec: SystemSpec, adj: np.ndarray) -> list[tuple[int, int]]:
     iu0, iu1 = _triu_pairs(spec.n_tiles)
     mask = adj[iu0, iu1]
@@ -288,6 +298,40 @@ class NeighborMoves:
         return [self.materialize(j) for j in range(len(self))]
 
 
+def draw_neighbor_moves(
+    spec: SystemSpec,
+    perm: np.ndarray,
+    links: np.ndarray,
+    rng: np.random.Generator,
+    n_swaps: int,
+    n_link_moves: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The neighborhood sampler's draws for placement ``perm`` and planar
+    links ``links``, a (N(N-1)/2,) bool upper-triangle row in
+    ``_triu_pairs`` order: ``(swaps, ri, ai)`` — (S, 2) int32 slot pairs,
+    then per link move the row index of the link removed (``ri``) and of
+    the hole filled (``ai``). The one place the draws are made, for
+    :func:`sample_neighbor_moves` and NSGA-II's mutation alike."""
+    n = spec.n_tiles
+    # Uniform ordered distinct pairs, drawn in one vectorized shot (the
+    # same per-pair distribution as choice(n, 2, replace=False), without
+    # n_swaps generator round-trips — the sampler is on the fused meta
+    # step's critical path). No-op swaps (identical core ids) are skipped,
+    # as before.
+    a = rng.integers(0, n, size=n_swaps)
+    b = rng.integers(0, n - 1, size=n_swaps)
+    b = b + (b >= a)
+    keep = perm[a] != perm[b]
+    swaps = np.stack([a[keep], b[keep]], axis=1).astype(np.int32)
+    link_idx = np.flatnonzero(links)
+    hole_idx = np.flatnonzero(_planar_pair_row(spec) & ~links)
+    ri = ai = np.zeros(0, np.intp)
+    if link_idx.size and hole_idx.size:
+        ri = link_idx[rng.integers(0, link_idx.size, size=n_link_moves)]
+        ai = hole_idx[rng.integers(0, hole_idx.size, size=n_link_moves)]
+    return swaps.reshape(-1, 2), ri, ai
+
+
 def sample_neighbor_moves(
     spec: SystemSpec,
     d: Design,
@@ -299,29 +343,13 @@ def sample_neighbor_moves(
     construction). This IS the neighborhood sampler — ``sample_neighbors``
     materializes its output — so the same (rng state, base, knobs) yields
     the same candidates in the same order under either representation."""
-    n = spec.n_tiles
-    # Uniform ordered distinct pairs, drawn in one vectorized shot (the
-    # same per-pair distribution as choice(n, 2, replace=False), without
-    # n_swaps generator round-trips — the sampler is on the fused meta
-    # step's critical path). No-op swaps (identical core ids) are skipped,
-    # as before.
-    a = rng.integers(0, n, size=n_swaps)
-    b = rng.integers(0, n - 1, size=n_swaps)
-    b = b + (b >= a)
-    keep = d.perm[a] != d.perm[b]
-    swaps = np.stack([a[keep], b[keep]], axis=1).astype(np.int32)
-    iu0, iu1 = _triu_pairs(n)
-    present = d.adj[iu0, iu1].astype(bool)
-    link_idx = np.flatnonzero(present)
-    hole_idx = np.flatnonzero(spec.planar_pair_mask[iu0, iu1] & ~present)
-    rem = add = np.zeros((0, 2), np.int32)
-    if link_idx.size and hole_idx.size:
-        ri = link_idx[rng.integers(0, link_idx.size, size=n_link_moves)]
-        ai = hole_idx[rng.integers(0, hole_idx.size, size=n_link_moves)]
-        rem = np.stack([iu0[ri], iu1[ri]], axis=1).astype(np.int32)
-        add = np.stack([iu0[ai], iu1[ai]], axis=1).astype(np.int32)
-    return NeighborMoves(base=d, swaps=swaps.reshape(-1, 2),
-                         rem=rem, add=add)
+    iu0, iu1 = _triu_pairs(spec.n_tiles)
+    swaps, ri, ai = draw_neighbor_moves(
+        spec, d.perm, d.adj[iu0, iu1].astype(bool), rng, n_swaps,
+        n_link_moves)
+    rem = np.stack([iu0[ri], iu1[ri]], axis=1).astype(np.int32)
+    add = np.stack([iu0[ai], iu1[ai]], axis=1).astype(np.int32)
+    return NeighborMoves(base=d, swaps=swaps, rem=rem, add=add)
 
 
 def sample_neighbors(
