@@ -35,8 +35,8 @@ from __future__ import annotations
 import numpy as np
 
 from .evaluate import Evaluator
-from .local_search import ParetoSet, SearchHistory, _crowding_thin
-from .pareto import PhvContext, dominates, pareto_mask
+from .local_search import ParetoSet, SearchHistory
+from .pareto import PhvContext, crowding_thin, dominates
 from .problem import Design, SystemSpec, sample_neighbors
 
 
@@ -145,7 +145,7 @@ def amosa(
                 accepted = True
                 archive = archive.merged_with([new], new_obj[None], ctx.obj_idx)
                 if len(archive.designs) > soft_limit:
-                    keep = _crowding_thin(
+                    keep = crowding_thin(
                         ctx.normalize(archive.objs), hard_limit
                     )
                     archive = ParetoSet(

@@ -55,8 +55,8 @@ class Evaluator:
                  split_devices=None):
         if delta not in DELTA_MODES:
             raise ValueError(f"delta must be one of {DELTA_MODES}, got {delta!r}")
+        routing.resolve_backend(backend)
         self.spec = spec
-        self.backend = routing.resolve_backend(backend)
         self.device = resolve_device(device)
         self.split_devices = (tuple(resolve_device(d) for d in split_devices)
                               if split_devices else None)
@@ -72,18 +72,17 @@ class Evaluator:
         self.consts: SpecConsts = make_consts(spec, str(self.device))
         self.f = torch.as_tensor(np.asarray(f, dtype=np.float32),
                                  device=self.device)
-        # (device, consts, traffic) per chunk of a split batch.
+        # (device, consts, traffic) per part of a chunk: one unless split.
         self._parts = [
             (d, self.consts, self.f) if d == self.device else
             (d, make_consts(spec, str(d)),
              torch.as_tensor(np.asarray(f, dtype=np.float32), device=d))
-            for d in self.split_devices or ()]
+            for d in self.split_devices or (self.device,)]
         # Incremental move evaluation (batch_moves): swap candidates reuse
         # the base design's tables verbatim (adjacency is slot-keyed, a swap
         # only permutes cores); link moves get an O(N²) table delta
         # (routing.delta_link_move) instead of a full APSP. Off for a split
         # evaluator, whose chunks recompute their tables on their devices.
-        self.delta_mode = delta
         self.delta_on = (self.split_devices is None
                          and (delta == "on"
                               or (delta == "auto"
@@ -95,11 +94,6 @@ class Evaluator:
                             "table_hits": 0, "table_misses": 0}
         self.n_evals = 0  # evaluation counter (search-cost accounting)
         self.n_calls = 0  # device passes (batching-efficiency accounting)
-
-    def _to_dev(self, arrays, dtype, device=None) -> torch.Tensor:
-        return torch.as_tensor(np.stack(arrays), dtype=dtype,
-                               device=self.device if device is None
-                               else device)
 
     # ------------------------------------------------------------- single
     def __call__(self, d: Design) -> np.ndarray:
@@ -113,46 +107,76 @@ class Evaluator:
     def batch_aux(self, designs: list[Design]) -> tuple[np.ndarray, dict]:
         if not designs:
             return np.zeros((0, N_OBJ)), {"net_lat": np.zeros((0,))}
-        if self.max_batch is not None and len(designs) > self.max_batch:
-            outs, auxes = zip(*(
-                self.batch_aux(designs[i:i + self.max_batch])
-                for i in range(0, len(designs), self.max_batch)))
-            return (np.concatenate(outs, axis=0),
-                    {k: np.concatenate([a[k] for a in auxes], axis=0)
-                     for k in auxes[0]})
-        if self.split_devices is None:
-            outs = [self._dense(self.device, self.consts, self.f, designs)]
-        else:
-            # Contiguous chunks, the first len % ndev one design longer;
-            # every chunk is launched before any result is read back, so
-            # the devices run at once.
-            base, rem = divmod(len(designs), len(self._parts))
-            outs, lo = [], 0
-            for i, (dev, consts, f) in enumerate(self._parts):
-                hi = lo + base + (1 if i < rem else 0)
-                if hi > lo:
-                    outs.append(self._dense(dev, consts, f, designs[lo:hi]))
-                lo = hi
-        self.n_evals += len(designs)
-        self.n_calls += 1
-        with span("noc.eval.read"):
-            objs = np.concatenate([o.cpu().numpy() for o, _ in outs], axis=0)
-            aux = {k: np.concatenate([a[k].cpu().numpy() for _, a in outs],
-                                     axis=0) for k in outs[0][1]}
-            return objs.astype(np.float64), aux
+        return self._run(*self._host((d.perm[None], d.adj[None])
+                                     for d in designs), aux=True)
 
-    def _dense(self, device, consts, f, designs):
-        """Cost build → APSP (K1) → next hops → walk (K4) → objectives for
-        ``designs`` on ``device``; returns the device tensors."""
+    @staticmethod
+    def _host(blocks) -> tuple[np.ndarray, np.ndarray]:
+        """One call's host arrays: the ``(perms, adjs)`` blocks, in order,
+        concatenated into (B, N) placements and (B, N, N) adjacencies; one
+        block is taken as it is."""
         with span("noc.eval.pack"):
-            perms = self._to_dev([d.perm for d in designs], torch.int64,
-                                 device)
-            adjs = self._to_dev([d.adj for d in designs], torch.bool, device)
-        with span("noc.eval.enqueue"):
-            costs = design_cost(consts, adjs)
-            dist, nh = routing.routing_tables_batched(costs,
-                                                      consts.apsp_iters)
-            return evaluate_with_tables(consts, perms, adjs, f, dist, nh)
+            blocks = list(blocks)
+            if len(blocks) == 1:
+                return blocks[0]
+            perms, adjs = zip(*blocks)
+            return np.concatenate(perms), np.concatenate(adjs)
+
+    def _run(self, perms: np.ndarray, adjs: np.ndarray, tables=None, *,
+             aux: bool = False):
+        """Objective rows (and with ``aux`` the auxiliary outputs) of the
+        candidates ``perms`` (B, N), ``adjs`` (B, N, N): per chunk of
+        ``max_batch`` rows, copy to the device, enqueue cost build → APSP
+        (K1) → next hops → walk (K4) → objectives, count one call, read the
+        rows back. ``tables``, two lists of B host arrays (dist, next hop),
+        replaces the cost build, APSP and next hops.
+
+        A split evaluator cuts each chunk into contiguous parts, one per
+        device, the first ``rows % ndev`` one row longer, and launches them
+        all before reading any back, so the devices run at once."""
+        n = perms.shape[0]
+        step = self.max_batch or n
+        objs, auxes = [], []
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            size, extra = divmod(hi - lo, len(self._parts))
+            ends = np.cumsum([lo] + [size + (i < extra)
+                                     for i in range(len(self._parts))])
+            with span("noc.eval.pack"):
+                parts = [(consts, f,
+                          torch.as_tensor(perms[a:b], dtype=torch.int64,
+                                          device=dev),
+                          torch.as_tensor(adjs[a:b], dtype=torch.bool,
+                                          device=dev),
+                          None if tables is None else
+                          [torch.as_tensor(np.stack(t[a:b]), dtype=dt,
+                                           device=dev)
+                           for t, dt in zip(tables,
+                                            (torch.float32, torch.int32))])
+                         for (dev, consts, f), a, b
+                         in zip(self._parts, ends, ends[1:]) if b > a]
+            with span("noc.eval.enqueue"):
+                outs = []
+                for consts, f, perm, adj, tab in parts:
+                    if tab is None:
+                        tab = routing.routing_tables_batched(
+                            design_cost(consts, adj), consts.apsp_iters)
+                    outs.append(evaluate_with_tables(consts, perm, adj, f,
+                                                     *tab))
+            self.n_evals += hi - lo
+            self.n_calls += 1
+            with span("noc.eval.read"):
+                objs.append(np.concatenate([o.cpu().numpy() for o, _ in outs],
+                                           axis=0).astype(np.float64))
+                if aux:
+                    auxes.append({k: np.concatenate(
+                        [a[k].cpu().numpy() for _, a in outs], axis=0)
+                        for k in outs[0][1]})
+        objs = np.concatenate(objs, axis=0)
+        if not aux:
+            return objs
+        return objs, {k: np.concatenate([a[k] for a in auxes], axis=0)
+                      for k in auxes[0]}
 
     # -------------------------------------------------------------- moves
     def batch_moves(self, moves) -> np.ndarray:
@@ -175,37 +199,24 @@ class Evaluator:
         mvs = [m for m in mvs if len(m)]
         if not mvs:
             return np.zeros((0, N_OBJ))
+        perms, adjs = self._host(m.arrays() for m in mvs)
         if not self.delta_on:
-            with span("noc.eval.pack"):
-                designs = [d for m in mvs for d in m.materialize_all()]
-            return self.batch(designs)
-        perms, adjs, dists, nhs = [], [], [], []
+            return self._run(perms, adjs)
+        dists, nhs = [], []
         with span("noc.eval.delta"):
             for mv in mvs:
                 t0 = self._host_tables(mv.base)
-                for s in range(mv.swaps.shape[0]):
-                    a, b = int(mv.swaps[s, 0]), int(mv.swaps[s, 1])
-                    p = mv.base.perm.copy()
-                    p[a], p[b] = p[b], p[a]
-                    perms.append(p)
-                    adjs.append(mv.base.adj)
-                    dists.append(t0.dist)
-                    nhs.append(t0.nh)
-                self.delta_stats["swap"] += mv.swaps.shape[0]
-                count("noc.delta.swap", mv.swaps.shape[0])
-                for k in range(mv.rem.shape[0]):
-                    rem = (int(mv.rem[k, 0]), int(mv.rem[k, 1]))
-                    add = (int(mv.add[k, 0]), int(mv.add[k, 1]))
+                s = mv.swaps.shape[0]
+                dists += [t0.dist] * s
+                nhs += [t0.nh] * s
+                self.delta_stats["swap"] += s
+                count("noc.delta.swap", s)
+                for rem, add in zip(mv.rem.tolist(), mv.add.tolist()):
                     t = self._moved_tables(t0, rem, add)
-                    adj2 = mv.base.adj.copy()
-                    adj2[rem[0], rem[1]] = adj2[rem[1], rem[0]] = False
-                    adj2[add[0], add[1]] = adj2[add[1], add[0]] = True
-                    perms.append(mv.base.perm)
-                    adjs.append(adj2)
                     dists.append(t.dist)
                     nhs.append(t.nh)
-            count("noc.delta.served", len(perms))
-        return self._eval_from_tables(perms, adjs, dists, nhs)
+            count("noc.delta.served", len(dists))
+        return self._run(perms, adjs, (dists, nhs))
 
     def note_accept(self, mv: NeighborMoves, j: int) -> None:
         """Tell the evaluator candidate ``j`` of ``mv`` was accepted: cache
@@ -214,21 +225,16 @@ class Evaluator:
         deltas are off or the winner is a swap (same adjacency)."""
         if not self.delta_on:
             return
-        s = mv.swaps.shape[0]
-        if j < s:
+        k = j - mv.swaps.shape[0]
+        if k < 0:
             return
-        k = j - s
-        rem = (int(mv.rem[k, 0]), int(mv.rem[k, 1]))
-        add = (int(mv.add[k, 0]), int(mv.add[k, 1]))
-        adj2 = mv.base.adj.copy()
-        adj2[rem[0], rem[1]] = adj2[rem[1], rem[0]] = False
-        adj2[add[0], add[1]] = adj2[add[1], add[0]] = True
-        key = np.packbits(adj2).tobytes()
+        key = np.packbits(mv.materialize(j).adj).tobytes()
         with span("noc.eval.delta"):
             if key in self._tab_cache:
                 self._tab_cache.move_to_end(key)
                 return
-            t = self._moved_tables(self._host_tables(mv.base), rem, add)
+            t = self._moved_tables(self._host_tables(mv.base),
+                                   mv.rem[k].tolist(), mv.add[k].tolist())
             self._tab_put(key, t)
 
     def _host_tables(self, base: Design) -> routing.HostTables:
@@ -256,11 +262,10 @@ class Evaluator:
         if t is None:
             self.delta_stats["fallback"] += 1
             count("noc.delta.fallback")
-            cost2 = t0.cost.copy()
-            cost2[rem[0], rem[1]] = cost2[rem[1], rem[0]] = np.float32(routing.INF)
-            cost2[add[0], add[1]] = cost2[add[1], add[0]] = w
             with span("noc.eval.rebuild"):
-                return routing.host_tables(cost2, self.consts.apsp_iters)
+                return routing.host_tables(
+                    routing.moved_cost(t0.cost, rem, add, w),
+                    self.consts.apsp_iters)
         self.delta_stats["delta"] += 1
         return t
 
@@ -274,28 +279,6 @@ class Evaluator:
                and len(self._tab_cache) > 1):
             _, evicted = self._tab_cache.popitem(last=False)
             self._tab_cache_nbytes -= evicted.nbytes
-
-    def _eval_from_tables(self, perms, adjs, dists, nhs) -> np.ndarray:
-        """Run the objective walk over candidates with precomputed routing
-        tables, chunked by ``max_batch``; the same eval/call counters
-        apply."""
-        out = []
-        step = self.max_batch if self.max_batch is not None else len(perms)
-        for i in range(0, len(perms), step):
-            sl = slice(i, i + step)
-            with span("noc.eval.pack"):
-                adj = self._to_dev(adjs[sl], torch.bool)
-                perm = self._to_dev(perms[sl], torch.int64)
-                dist = self._to_dev(dists[sl], torch.float32)
-                nh = self._to_dev(nhs[sl], torch.int32)
-            with span("noc.eval.enqueue"):
-                objs, _ = evaluate_with_tables(self.consts, perm, adj,
-                                               self.f, dist, nh)
-            self.n_evals += adj.shape[0]
-            self.n_calls += 1
-            with span("noc.eval.read"):
-                out.append(objs.cpu().numpy().astype(np.float64))
-        return np.concatenate(out, axis=0)
 
     # ---------------------------------------------------------------- EDP
     def edp(self, d: Design) -> float:

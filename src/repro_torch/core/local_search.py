@@ -8,9 +8,9 @@ non-dominated set, the search trajectory, and the last design (Alg. 1's
 
 :func:`local_search_batch` runs K chains in lockstep: per step, every live
 chain samples its neighborhood and ALL candidates go through one
-``Evaluator.batch`` call (one batched device pass serves every chain), then
-each chain takes its own greedy PHV step. ``local_search`` is the K=1
-special case."""
+``Evaluator.batch_moves`` call (one batched device pass serves every
+chain), then each chain takes its own greedy PHV step. ``local_search`` is
+the K=1 special case."""
 
 from __future__ import annotations
 
@@ -20,23 +20,25 @@ import time
 import numpy as np
 
 from .evaluate import Evaluator
-from .pareto import ParetoArchive, PhvContext
+from .pareto import ParetoArchive, PhvContext, crowding_thin
 from .problem import Design, SystemSpec, sample_neighbor_moves
 from ..tracing import span
 
 
-def _crowding_thin(objs: np.ndarray, keep: int) -> np.ndarray:
-    """Indices of `keep` rows with largest crowding distance."""
-    n, m = objs.shape
-    if n <= keep:
-        return np.arange(n)
-    crowd = np.zeros(n)
-    for j in range(m):
-        order = np.argsort(objs[:, j], kind="stable")
-        rng_j = objs[order[-1], j] - objs[order[0], j] + 1e-12
-        crowd[order[0]] = crowd[order[-1]] = np.inf
-        crowd[order[1:-1]] += (objs[order[2:], j] - objs[order[:-2], j]) / rng_j
-    return np.argsort(-crowd, kind="stable")[:keep]
+def _front_keep(sub: np.ndarray, n_front: int) -> np.ndarray:
+    """Keep mask over the rows of ``sub``: the first ``n_front``, already a
+    non-dominated deduplicated front, seed a :class:`ParetoArchive`
+    unchecked; each later row is inserted in order, clearing the rows it
+    evicts."""
+    arch = ParetoArchive.from_front(sub[:n_front], tags=range(n_front))
+    keep = np.zeros(len(sub), dtype=bool)
+    keep[:n_front] = True
+    for i in range(n_front, len(sub)):
+        ok, evicted = arch.insert(sub[i], tag=i)
+        keep[i] = ok
+        for t in evicted:
+            keep[t] = False
+    return keep
 
 
 @dataclasses.dataclass
@@ -69,16 +71,7 @@ class ParetoSet:
         if not alld:
             return ParetoSet.empty()
         allo = np.vstack([self.objs, np.atleast_2d(objs)])
-        sub = allo[:, list(obj_idx)]
-        n_old = len(self.designs)
-        arch = ParetoArchive.from_front(sub[:n_old], tags=range(n_old))
-        keep = np.zeros(len(alld), dtype=bool)
-        keep[:n_old] = True
-        for i in range(n_old, len(alld)):
-            ok, evicted = arch.insert(sub[i], tag=i)
-            keep[i] = ok
-            for t in evicted:
-                keep[t] = False
+        keep = _front_keep(allo[:, list(obj_idx)], len(self.designs))
         return ParetoSet([d for d, m in zip(alld, keep) if m], allo[keep])
 
     @staticmethod
@@ -103,14 +96,7 @@ class ParetoSet:
         order = sorted(pairs)
         designs = [pairs[k][0] for k in order]
         objs = np.stack([pairs[k][1] for k in order])
-        sub = objs[:, list(obj_idx)]
-        arch = ParetoArchive(sub.shape[1])
-        keep = np.zeros(len(order), dtype=bool)
-        for i in range(len(order)):
-            ok, evicted = arch.insert(sub[i], tag=i)
-            keep[i] = ok
-            for t in evicted:
-                keep[t] = False
+        keep = _front_keep(objs[:, list(obj_idx)], 0)
         return ParetoSet([d for d, m in zip(designs, keep) if m], objs[keep])
 
     def keys(self) -> set[bytes]:
@@ -181,8 +167,8 @@ def local_search_batch(
     max_evals: int | None = None,
     seed_set: "ParetoSet | None" = None,
 ) -> list[LocalResult]:
-    """K PHV-greedy local searches advanced in lockstep (one padded
-    ``Evaluator.batch`` call per step serves every live chain). With a
+    """K PHV-greedy local searches advanced in lockstep (one
+    ``Evaluator.batch_moves`` call per step serves every live chain). With a
     single start this IS ``local_search`` — the rng stream, greedy argmax,
     and thinning are identical. ``max_evals`` stops launching new steps once
     the evaluator's counter crosses the budget (multi-start accounting).
@@ -248,7 +234,7 @@ def local_search_batch(
                     # Bound the PHV working set (crowding thinning, as
                     # AMOSA bounds its archive) — HSO cost grows fast with
                     # set size.
-                    keep = _crowding_thin(
+                    keep = crowding_thin(
                         ctx.normalize(ch.s_local.objs), max_set * 2 // 3)
                     ch.s_local = ParetoSet(
                         [ch.s_local.designs[i] for i in keep],

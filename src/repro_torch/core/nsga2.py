@@ -29,7 +29,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from .evaluate import Evaluator
 from .local_search import ParetoSet, SearchHistory
-from .pareto import PhvContext
+from .pareto import PhvContext, crowding_distance
 from .problem import (Design, SystemSpec, _triu_pairs, draw_neighbor_moves,
                       sample_neighbors)
 from ..tracing import count, span
@@ -82,18 +82,6 @@ def _fast_nondominated_rank(objs: np.ndarray) -> np.ndarray:
     return rank
 
 
-def _crowding(objs: np.ndarray) -> np.ndarray:
-    n, m = objs.shape
-    crowd = np.zeros(n)
-    for j in range(m):
-        order = np.argsort(objs[:, j], kind="stable")
-        rng_j = objs[order[-1], j] - objs[order[0], j] + 1e-12
-        crowd[order[0]] = crowd[order[-1]] = np.inf
-        if n > 2:
-            crowd[order[1:-1]] += (objs[order[2:], j] - objs[order[:-2], j]) / rng_j
-    return crowd
-
-
 #: Pinned host staging for the card's selection calls, one per thread: the
 #: objective rows on their way in, then the kernel's (2, n) output.
 _staging = threading.local()
@@ -132,7 +120,7 @@ def rank_and_crowding(objs: np.ndarray, backend: str | None = None,
                 out = ops.nsga2_rank(torch.as_tensor(
                     np.asarray(objs, np.float32), device=dev)).numpy()
             return out[0], out[1].view(np.float32).astype(np.float64)
-        return _fast_nondominated_rank(objs), _crowding(objs)
+        return _fast_nondominated_rank(objs), crowding_distance(objs)
 
 
 def _vary(spec: SystemSpec, pop: list[Design], rank: np.ndarray,

@@ -55,6 +55,29 @@ def pareto_mask(points: np.ndarray) -> np.ndarray:
     return mask
 
 
+def crowding_distance(objs: np.ndarray) -> np.ndarray:
+    """NSGA-II crowding distance of each row of ``objs`` (n, m): per
+    objective, the boundary rows of a stable sort get INF and the others
+    the gap between their neighbours over the objective's range."""
+    n, m = objs.shape
+    crowd = np.zeros(n)
+    for j in range(m):
+        order = np.argsort(objs[:, j], kind="stable")
+        rng_j = objs[order[-1], j] - objs[order[0], j] + 1e-12
+        crowd[order[0]] = crowd[order[-1]] = np.inf
+        if n > 2:
+            crowd[order[1:-1]] += (objs[order[2:], j]
+                                   - objs[order[:-2], j]) / rng_j
+    return crowd
+
+
+def crowding_thin(objs: np.ndarray, keep: int) -> np.ndarray:
+    """Indices of `keep` rows with largest crowding distance."""
+    if objs.shape[0] <= keep:
+        return np.arange(objs.shape[0])
+    return np.argsort(-crowding_distance(objs), kind="stable")[:keep]
+
+
 class ParetoArchive:
     """Incremental non-dominated archive (minimization, keep-first ties).
 

@@ -297,6 +297,37 @@ class NeighborMoves:
     def materialize_all(self) -> list[Design]:
         return [self.materialize(j) for j in range(len(self))]
 
+    def arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(perms (B, N), adjs (B, N, N) bool)`` of all candidates in
+        ``materialize`` order: the stacked fields of :meth:`materialize_all`,
+        built by fancy indexing with no per-candidate ``Design``. The moves
+        are checked as ``materialize`` checks them, all at once: a swap of a
+        slot with itself, a self-link, a removed link that is absent or an
+        added link that is present (after the removal) raise
+        ``ValueError``."""
+        s, n = self.swaps.shape[0], len(self)
+        perms = np.repeat(self.base.perm[None], n, axis=0)
+        adjs = np.repeat(self.base.adj[None], n, axis=0)
+        r = np.arange(s)
+        a, b = self.swaps.T
+        if (a == b).any():
+            raise ValueError(f"swap_tiles: slots must differ, got "
+                             f"{self.swaps[a == b][0].tolist()}")
+        perms[r, a], perms[r, b] = self.base.perm[b], self.base.perm[a]
+        r = np.arange(s, n)
+        (a, b), (c, e) = self.rem.T, self.add.T
+        same = ((a == c) & (b == e)) | ((a == e) & (b == c))
+        bad = ((a == b) | (c == e) | ~self.base.adj[a, b]
+               | (self.base.adj[c, e] & ~same))
+        if bad.any():
+            k = int(np.flatnonzero(bad)[0])
+            raise ValueError(f"move_link: invalid move rem="
+                             f"{tuple(self.rem[k].tolist())}, "
+                             f"add={tuple(self.add[k].tolist())}")
+        adjs[r, a, b] = adjs[r, b, a] = False
+        adjs[r, c, e] = adjs[r, e, c] = True
+        return perms, adjs
+
 
 def draw_neighbor_moves(
     spec: SystemSpec,

@@ -290,6 +290,17 @@ def host_tables(cost: np.ndarray, n_iters: int) -> HostTables:
     return HostTables(cost, dist, next_hop_np(cost, dist), cost_t, dist_t)
 
 
+def moved_cost(cost: np.ndarray, rem, add, w) -> np.ndarray:
+    """A copy of the hop-cost matrix ``cost`` (the f32 costs or their f64
+    shadow) after moving one undirected link: ``rem`` becomes INF, ``add``
+    costs ``w``, both in ``cost``'s dtype."""
+    (a, b), (c, e) = rem, add
+    out = cost.copy()
+    out[a, b] = out[b, a] = INF
+    out[c, e] = out[e, c] = w
+    return out
+
+
 def delta_link_move(
     t: HostTables,
     rem: tuple[int, int],
@@ -330,14 +341,9 @@ def delta_link_move(
     n = t.cost.shape[0]
     a, b = int(rem[0]), int(rem[1])
     c, e = int(add[0]), int(add[1])
-    eps = _tie_eps(n)
-    cost2 = t.cost.copy()
-    cost2[a, b] = cost2[b, a] = np.float32(INF)
-    cost2[c, e] = cost2[e, c] = np.float32(w_add)
-    w2t = np.float64(np.float32(w_add)) + np.float64(eps[c, e])
-    cost2_t = t.cost_t.copy()
-    cost2_t[a, b] = cost2_t[b, a] = np.float64(INF)
-    cost2_t[c, e] = cost2_t[e, c] = w2t
+    cost2 = moved_cost(t.cost, rem, add, np.float32(w_add))
+    w2t = np.float64(np.float32(w_add)) + np.float64(_tie_eps(n)[c, e])
+    cost2_t = moved_cost(t.cost_t, rem, add, w2t)
 
     # Phase 1 — removal (shadow metric).
     dt = t.dist_t

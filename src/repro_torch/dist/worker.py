@@ -61,7 +61,7 @@ import time
 import traceback
 from concurrent.futures import ProcessPoolExecutor
 
-from ..noc.api import Budget, NocProblem, RunResult
+from ..noc.api import Budget, BudgetedEvaluator, NocProblem, RunResult
 from .faults import call_with_faults
 
 EXECUTORS = ("serial", "process", "cuda", "spmd")
@@ -90,12 +90,11 @@ _DEADLINE: contextvars.ContextVar[float | None] = contextvars.ContextVar(
     "repro_torch_dist_shard_deadline", default=None)
 
 
-class _DeadlineGuard:
+class _DeadlineGuard(BudgetedEvaluator):
     """Evaluator proxy that trips :class:`ShardDeadlineExceeded` once the
-    armed deadline passes. Mirrors the Evaluator surface the same way
-    :class:`repro_torch.noc.api.BudgetedEvaluator` does; reads
-    (``n_evals``/``n_calls``/``device``) and ``note_accept`` delegate
-    untouched, so wrapping never changes a run that meets its deadline."""
+    armed deadline passes: :class:`repro_torch.noc.api.BudgetedEvaluator`
+    with the deadline as its check, so wrapping never changes a run that
+    meets its deadline."""
 
     def __init__(self, ev, deadline: float):
         self._ev = ev
@@ -108,31 +107,6 @@ class _DeadlineGuard:
                 f"cooperative deadline exceeded {now - self._deadline:.3f}s "
                 "before an evaluation batch (in-process executors check the "
                 "shard deadline between evaluator dispatches)")
-
-    def batch_aux(self, designs):
-        if designs:
-            self._check()
-        return self._ev.batch_aux(designs)
-
-    def batch(self, designs):
-        return self.batch_aux(designs)[0]
-
-    def batch_moves(self, moves):
-        # The raw evaluator's delta path never calls back through batch.
-        ms = moves if isinstance(moves, (list, tuple)) else [moves]
-        if any(len(m) for m in ms):
-            self._check()
-        return self._ev.batch_moves(moves)
-
-    def __call__(self, d):
-        return self.batch([d])[0]
-
-    def edp(self, d):
-        self._check()
-        return self._ev.edp(d)
-
-    def __getattr__(self, name: str):
-        return getattr(self._ev, name)
 
 
 def deadline_wrap(ev):
@@ -235,8 +209,7 @@ def run_shard_round(problem_json: dict, budget_json: dict, seed: int,
 
     from ..core.local_search import ParetoSet, SearchHistory
     from ..core.stage import StageBatchResult, stage_batch
-    from ..noc.api import (BudgetedEvaluator, BudgetExhausted,
-                           design_from_json, design_to_json)
+    from ..noc.api import BudgetExhausted, design_from_json, design_to_json
     from ..noc.optimizers import StageBatchConfig
 
     problem = NocProblem.from_json(problem_json)

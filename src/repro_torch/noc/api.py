@@ -266,6 +266,12 @@ class BudgetedEvaluator:
     budget was already spent at entry, where an empty result is accurate —
     and never alters the driver's own run. It backstops drivers without
     native budget support (e.g. PCBB) and enforces ``max_calls`` uniformly.
+
+    The one guard proxy of the package: ``_check`` runs once before every
+    non-empty call of the five entry points (``batch_aux``, ``batch``,
+    ``batch_moves``, ``__call__``, ``edp``); everything else, counters and
+    ``note_accept`` included, is the evaluator's. A subclass overrides
+    ``_check`` (``dist.worker``'s deadline guard).
     """
 
     def __init__(self, ev: Evaluator, budget: Budget):
@@ -283,7 +289,6 @@ class BudgetedEvaluator:
                 f"dispatch budget exhausted ({self._ev.n_calls}/"
                 f"{b.max_calls} calls)")
 
-    # Mirror the Evaluator surface; everything funnels through batch_aux.
     def batch_aux(self, designs: list[Design]):
         if designs:
             self._check()
@@ -293,10 +298,7 @@ class BudgetedEvaluator:
         return self.batch_aux(designs)[0]
 
     def batch_moves(self, moves) -> np.ndarray:
-        # Must be mirrored here, not left to __getattr__: the raw
-        # evaluator's batch_moves dispatches internally (its delta path
-        # never calls back through this proxy's batch), so delegation
-        # would silently skip the budget check.
+        # The evaluator's batch_moves does not call back through batch.
         ms = moves if isinstance(moves, (list, tuple)) else [moves]
         if any(len(m) for m in ms):
             self._check()

@@ -27,6 +27,8 @@ from repro.core import PhvContext as RefPhvContext
 from repro.core.agnostic import OptimizeBudget as RefOptimizeBudget
 from repro.core.agnostic import optimize_for_traffic as ref_optimize
 from repro.core.agnostic import run_agnostic_study as ref_study
+from repro.core.amosa import _crowding_thin as ref_crowding_thin
+from repro.core.nsga2 import _crowding as ref_crowding
 from repro.core.nsga2 import rank_and_crowding as ref_rank_and_crowding
 from repro.core.phv_jnp import hypervolume_with_batch_jnp
 from repro_torch.core import CASES, dominates, random_design
@@ -38,6 +40,7 @@ from repro_torch.core.nsga2 import (RANK_BACKENDS, _fast_nondominated_rank,
                                     nsga2, rank_and_crowding,
                                     resolve_rank_backend)
 from repro_torch.core.pareto import (PHV_BACKENDS, PhvContext,
+                                     crowding_distance, crowding_thin,
                                      hypervolume_with_batch)
 from repro_torch.core.pcbb import pcbb
 from repro_torch.core.phv_torch import hypervolume_with_batch_torch
@@ -248,6 +251,22 @@ def test_rank_twin_matches_numpy_and_reference_jnp():
             assert np.array_equal(fin, np.isfinite(c_d))
             np.testing.assert_allclose(c_d[fin], c[fin], rtol=1e-5,
                                        atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 9, 40])
+@pytest.mark.parametrize("ties", [True, False])
+def test_shared_crowding_is_the_references_bit_for_bit(n, ties):
+    """The one host crowding distance (NSGA-II's selection, the local
+    search's and AMOSA's thinning) against the reference's two copies."""
+    rng = np.random.default_rng(n)
+    for m in (1, 2, 5):
+        objs = (rng.integers(0, 3, size=(n, m)).astype(np.float64) if ties
+                else rng.random((n, m)))
+        if n:
+            assert np.array_equal(crowding_distance(objs), ref_crowding(objs))
+        for keep in (0, 1, 2, n // 2, n):
+            assert np.array_equal(crowding_thin(objs, keep),
+                                  ref_crowding_thin(objs, keep))
 
 
 def test_rank_backend_names():

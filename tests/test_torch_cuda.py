@@ -873,8 +873,10 @@ def test_evaluator_device_pass_makes_no_host_sync(dev):
     rng = np.random.default_rng(2)
     designs = [random_design(spec, rng) for _ in range(12)]
     want = ev.batch(designs)
-    perms = ev._to_dev([d.perm for d in designs], torch.int64)
-    adjs = ev._to_dev([d.adj for d in designs], torch.bool)
+    perms = torch.as_tensor(np.stack([d.perm for d in designs]),
+                            dtype=torch.int64, device=dev)
+    adjs = torch.as_tensor(np.stack([d.adj for d in designs]),
+                           dtype=torch.bool, device=dev)
     with _no_host_sync():
         dist, nh = routing.routing_tables_batched(design_cost(ev.consts, adjs),
                                                   ev.consts.apsp_iters)

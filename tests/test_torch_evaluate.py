@@ -99,6 +99,18 @@ def test_delta_on_bit_equal_off(spec_fn):
     assert (on.n_evals, on.n_calls) == (off.n_evals, off.n_calls)
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.int64])
+def test_an_integer_adjacency_evaluates_as_bool(dtype):
+    """Designs whose adjacency is 0/1 integers give the rows of the same
+    designs with a bool adjacency, one design or many."""
+    spec = spec_tiny()
+    ev = Evaluator(spec, traffic_matrix(spec, "BFS"), device="cpu")
+    designs = _designs(spec, 5, 9)
+    ints = [Design(perm=d.perm, adj=d.adj.astype(dtype)) for d in designs]
+    assert np.array_equal(ev.batch(ints), ev.batch(designs))
+    assert np.array_equal(ev(ints[0]), ev(designs[0]))
+
+
 def test_evaluator_knobs_validated():
     spec = spec_tiny()
     f = traffic_matrix(spec, "BFS")
