@@ -10,6 +10,12 @@ PyTorch runs eagerly, so batches are not padded to a power of two; the
 chunking by ``max_batch`` is the reference's, so ``n_evals`` and ``n_calls``
 count the same over the same calls.
 
+On one CUDA device (no ``split_devices``) each chunk's device pass is a
+replayed CUDA graph, one per chunk shape, fed and read through pinned
+staging (:mod:`repro_torch.core.graphs`): the same kernels and sums as
+the eager pass, so the same rows. The CPU keeps the eager pass in the
+reference's host order.
+
 ``split_devices`` is the data-parallel form the distributed ``spmd``
 executor uses (the reference's multi-device ``shard_map`` evaluator): each
 batch is cut into contiguous chunks, one per device in the list, each
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import routing
+from . import graphs, routing
 from .objectives import (N_OBJ, SpecConsts, design_cost, design_cost_np,
                          evaluate_with_tables, make_consts)
 from .problem import Design, NeighborMoves, SystemSpec
@@ -43,6 +49,21 @@ DELTA_AUTO_MIN_TILES = 128
 #: Transient budget for one batched-APSP dispatch — bounds the (B, N, N, N)
 #: next-hop broadcast by shrinking the chunk size as N grows.
 _BATCH_BUDGET_BYTES = 512 << 20
+
+
+def device_pass(c: SpecConsts, f: torch.Tensor, v: dict,
+                out: torch.Tensor) -> None:
+    """One chunk's pass on its device, from the typed fields ``v`` of its
+    input (:func:`graphs.layout`): the cost build, APSP (K1) and next hops
+    unless ``v`` holds tables, the walk (K4) and the objectives, written
+    into ``out`` (rows, 7) as the objectives, connected, net_lat. It makes
+    no host sync, so a CUDA graph can capture it."""
+    tab = (v["dist"], v["nh"]) if "dist" in v else \
+        routing.routing_tables_batched(design_cost(c, v["adj"]),
+                                       c.apsp_iters)
+    objs, aux = evaluate_with_tables(c, v["perm"], v["adj"], f, *tab)
+    torch.cat([objs, aux["connected"][:, None].float(),
+               aux["net_lat"][:, None]], dim=1, out=out)
 
 
 class Evaluator:
@@ -83,6 +104,8 @@ class Evaluator:
         # only permutes cores); link moves get an O(N²) table delta
         # (routing.delta_link_move) instead of a full APSP. Off for a split
         # evaluator, whose chunks recompute their tables on their devices.
+        self._graphs = self.split_devices is None and graphs.serves(
+            self.device)
         self.delta_on = (self.split_devices is None
                          and (delta == "on"
                               or (delta == "auto"
@@ -131,52 +154,116 @@ class Evaluator:
         rows back. ``tables``, two lists of B host arrays (dist, next hop),
         replaces the cost build, APSP and next hops.
 
-        A split evaluator cuts each chunk into contiguous parts, one per
-        device, the first ``rows % ndev`` one row longer, and launches them
-        all before reading any back, so the devices run at once."""
+        On one card a chunk is :meth:`_card_chunk`'s, a replayed graph.
+        Otherwise, a split evaluator cuts each chunk into contiguous parts,
+        one per device, the first ``rows % ndev`` one row longer, and
+        launches them all before reading any back, so the devices run at
+        once."""
         n = perms.shape[0]
         step = self.max_batch or n
+        chunk = self._card_chunk if self._graphs else self._parts_chunk
         objs, auxes = [], []
         for lo in range(0, n, step):
             hi = min(lo + step, n)
-            size, extra = divmod(hi - lo, len(self._parts))
-            ends = np.cumsum([lo] + [size + (i < extra)
-                                     for i in range(len(self._parts))])
-            with span("noc.eval.pack"):
-                parts = [(consts, f,
-                          torch.as_tensor(perms[a:b], dtype=torch.int64,
-                                          device=dev),
-                          torch.as_tensor(adjs[a:b], dtype=torch.bool,
-                                          device=dev),
-                          None if tables is None else
-                          [torch.as_tensor(np.stack(t[a:b]), dtype=dt,
-                                           device=dev)
-                           for t, dt in zip(tables,
-                                            (torch.float32, torch.int32))])
-                         for (dev, consts, f), a, b
-                         in zip(self._parts, ends, ends[1:]) if b > a]
-            with span("noc.eval.enqueue"):
-                outs = []
-                for consts, f, perm, adj, tab in parts:
-                    if tab is None:
-                        tab = routing.routing_tables_batched(
-                            design_cost(consts, adj), consts.apsp_iters)
-                    outs.append(evaluate_with_tables(consts, perm, adj, f,
-                                                     *tab))
-            self.n_evals += hi - lo
-            self.n_calls += 1
-            with span("noc.eval.read"):
-                objs.append(np.concatenate([o.cpu().numpy() for o, _ in outs],
-                                           axis=0).astype(np.float64))
-                if aux:
-                    auxes.append({k: np.concatenate(
-                        [a[k].cpu().numpy() for _, a in outs], axis=0)
-                        for k in outs[0][1]})
+            o, a = chunk(perms[lo:hi], adjs[lo:hi],
+                         None if tables is None else
+                         [t[lo:hi] for t in tables], aux)
+            objs.append(o)
+            auxes.append(a)
         objs = np.concatenate(objs, axis=0)
         if not aux:
             return objs
         return objs, {k: np.concatenate([a[k] for a in auxes], axis=0)
                       for k in auxes[0]}
+
+    def _count(self, rows: int) -> None:
+        self.n_evals += rows
+        self.n_calls += 1
+
+    def _parts_chunk(self, perms, adjs, tables, aux: bool):
+        """One chunk on the CPU or across ``split_devices``: each part's
+        arrays to its device, every part's pass enqueued, then read."""
+        size, extra = divmod(perms.shape[0], len(self._parts))
+        ends = np.cumsum([0] + [size + (i < extra)
+                                for i in range(len(self._parts))])
+        with span("noc.eval.pack"):
+            parts = [(consts, f,
+                      torch.as_tensor(perms[a:b], dtype=torch.int64,
+                                      device=dev),
+                      torch.as_tensor(adjs[a:b], dtype=torch.bool,
+                                      device=dev),
+                      None if tables is None else
+                      [torch.as_tensor(np.stack(t[a:b]), dtype=dt,
+                                       device=dev)
+                       for t, dt in zip(tables,
+                                        (torch.float32, torch.int32))])
+                     for (dev, consts, f), a, b
+                     in zip(self._parts, ends, ends[1:]) if b > a]
+        with span("noc.eval.enqueue"):
+            outs = []
+            for consts, f, perm, adj, tab in parts:
+                if tab is None:
+                    tab = routing.routing_tables_batched(
+                        design_cost(consts, adj), consts.apsp_iters)
+                outs.append(evaluate_with_tables(consts, perm, adj, f, *tab))
+        self._count(perms.shape[0])
+        with span("noc.eval.read"):
+            objs = np.concatenate([o.cpu().numpy() for o, _ in outs],
+                                  axis=0).astype(np.float64)
+            return objs, {k: np.concatenate(
+                [a[k].cpu().numpy() for _, a in outs], axis=0)
+                for k in outs[0][1]} if aux else None
+
+    def _card_chunk(self, perms, adjs, tables, aux: bool):
+        """One chunk on the single card: its host arrays into pinned
+        staging, one copy into the pass's input, the pass replayed from
+        its captured graph (eager on its shape's first sighting, captured
+        on its second), one copy of its (rows, 7) output back, one sync.
+        Counted: ``noc.eval.graph.replay`` a chunk a replay served,
+        ``noc.eval.graph.eager`` one run eagerly or captured,
+        ``noc.eval.graph.capture`` one captured."""
+        rows, n = perms.shape
+        dev = self.device
+        cache = graphs.cache()
+        key = (id(self.consts), dev, rows, tables is not None)
+        with span("noc.eval.pack"):
+            lay = graphs.layout(rows, n, tables is not None)
+            host = graphs.staging("in", lay.nbytes, dev)
+            v = lay.views(host)
+            v["perm"].numpy()[...] = perms
+            v["adj"].numpy()[...] = adjs
+            if tables is not None:
+                for name, t in zip(("dist", "nh"), tables):
+                    np.stack(t, out=v[name].numpy())
+            p, capture = cache.find(key)
+            fresh = p is None
+            if fresh:
+                p = graphs.Pass.new(lay, self.consts, self.f, dev,
+                                    static=capture)
+            else:
+                p.use_f(self.f)
+            p.inputs.copy_(host, non_blocking=True)
+        with span("noc.eval.enqueue"):
+            if fresh and capture:
+                cache.add(key, graphs.captured(p, lambda: device_pass(
+                    p.consts, p.f, p.views, p.out), dev))
+                count("noc.eval.graph.capture")
+            if fresh and not capture:
+                device_pass(p.consts, p.f, p.views, p.out)
+            else:
+                graphs.replay(p)
+            count("noc.eval.graph.eager" if fresh else
+                  "noc.eval.graph.replay")
+        self._count(rows)
+        with span("noc.eval.read"):
+            out = graphs.staging("out", p.out.numel() * 4, dev).view(
+                torch.float32).view(p.out.shape)
+            out.copy_(p.out, non_blocking=True)
+            graphs.wait(dev)
+            out = out.numpy()
+            objs = out[:, :N_OBJ].astype(np.float64)
+            return objs, {"connected": out[:, N_OBJ] != 0,
+                          "net_lat": out[:, N_OBJ + 1].copy()} if aux else None
 
     # -------------------------------------------------------------- moves
     def batch_moves(self, moves) -> np.ndarray:

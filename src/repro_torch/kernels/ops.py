@@ -5,7 +5,9 @@ For tensors on the CPU each wrapper runs its plain version
 hand-written kernel (``csrc/*.cu``, built at first use by
 :mod:`repro_torch.kernels.build`) or raises; there is no fallback. Every
 wrapper counts its kernel launches in ``KERNELS[name].launches``, adding
-one where it launches and nowhere else.
+one where it launches and nowhere else. A launch enqueued while a CUDA
+graph is captured (inside :func:`recorded`) runs only when the graph
+replays, so it counts there, through :func:`replayed`.
 
 Training reaches K5 and K6 through ``torch.autograd.Function``s, the
 counterparts of the reference's custom_vjps (``src/repro/kernels/ops.py``
@@ -23,10 +25,12 @@ raise like any other device that is not the CPU or one CUDA device."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -117,8 +121,48 @@ def work_log(records: list):
         _WORK = prev
 
 
-def _work(kernel: str, flops: float, n_bytes: float, dtype: str) -> None:
+@dataclasses.dataclass
+class Record:
+    """The launches and work a CUDA graph's capture enqueued, which each
+    of its replays runs."""
+
+    launches: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    works: list = dataclasses.field(default_factory=list)
+
+
+#: The open :func:`recorded` block's record, per thread: a capture on one
+#: thread leaves another thread's launches where they are.
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def recorded():
+    """Inside, this thread's launches and work go to the returned
+    :class:`Record` instead of ``KERNELS`` and the work log: a graph's
+    capture enqueues kernels that run only when it replays."""
+    prev = getattr(_capturing, "rec", None)
+    _capturing.rec = rec = Record()
+    try:
+        yield rec
+    finally:
+        _capturing.rec = prev
+
+
+def replayed(rec: Record) -> None:
+    """Count a replay of the graph whose capture made ``rec``: its
+    launches in ``KERNELS``, its work in the active work log."""
+    for name, n in rec.launches.items():
+        KERNELS[name].launches += n
     if _WORK is not None:
+        _WORK.extend(rec.works)
+
+
+def _work(kernel: str, flops: float, n_bytes: float, dtype: str) -> None:
+    rec = getattr(_capturing, "rec", None)
+    if rec is not None:
+        rec.works.append(Work(kernel, float(flops), float(n_bytes), dtype))
+    elif _WORK is not None:
         _WORK.append(Work(kernel, float(flops), float(n_bytes), dtype))
 
 
@@ -187,7 +231,11 @@ def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
-    KERNELS[kernel].launches += 1
+    rec = getattr(_capturing, "rec", None)
+    if rec is None:
+        KERNELS[kernel].launches += 1
+    else:
+        rec.launches[kernel] += 1
 
 
 # ------------------------------------------------------------------- K1

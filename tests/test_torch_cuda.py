@@ -12,8 +12,10 @@ the plain versions, and smoke-size train steps on the card against the
 CPU; the smoke configs of the five architectures phase 15 of
 chip_smoke.py brought to the card served on the card against the CPU;
 no host sync in ``attn_decode``, a whole ``decode_step`` of every family,
-an evaluator's device pass and a meta step's; and K3 refusing a side
-stream.
+an evaluator's device pass and a meta step's; the evaluator's replayed
+CUDA graphs (rows bit-equal to the eager pass's, another traffic matrix
+on the same graph, two threads at once, launch counts, kernel names in
+the profiler's trace); and K3 refusing a side stream.
 
 Marked ``cuda``: without a card every test skips (decided inside the
 fixture, never at import). On a machine with one:
@@ -22,6 +24,7 @@ fixture, never at import). On a machine with one:
 """
 
 import contextlib
+import threading
 
 import numpy as np
 import pytest
@@ -33,8 +36,8 @@ from repro_torch.core.features import design_features_batch
 from repro_torch.core.forest import RegressionForest
 from repro_torch.core.objectives import (design_cost, evaluate_with_tables,
                                          make_consts)
-from repro_torch.core.problem import (random_design, spec_16, spec_64,
-                                      spec_large)
+from repro_torch.core.problem import (random_design, spec_16, spec_36,
+                                      spec_64, spec_large)
 from repro_torch.core.traffic import traffic_matrix
 from repro_torch.kernels import ops, ref
 
@@ -883,6 +886,157 @@ def test_evaluator_device_pass_makes_no_host_sync(dev):
         objs, _ = evaluate_with_tables(ev.consts, perms, adjs, ev.f, dist, nh)
     np.testing.assert_array_equal(objs.cpu().numpy().astype(np.float64), want)
 
+
+
+def _graph_counts(fn):
+    """``fn()`` inside a traced record: (its result, the evaluator's
+    graph counters)."""
+    from repro_torch import tracing
+
+    with tracing.recording(), tracing.span(tracing.ROOT):
+        out = fn()
+    counts = tracing.runs()[-1]["counts"]
+    return out, {k.rsplit(".", 1)[1]: v for k, v in counts.items()
+                 if k.startswith("noc.eval.graph.")}
+
+
+def _eager(ev):
+    """``ev`` made to run every chunk eagerly, as before graphs."""
+    ev._graphs = False
+    return ev
+
+
+def _eval_case(spec_fn, rows, tables):
+    """(spec, traffic, the call to make on an evaluator): ``rows`` designs
+    through ``batch_aux``, or with ``tables`` a neighbourhood of ``rows``
+    moves through ``batch_moves`` with the delta path on."""
+    from repro_torch.core.problem import sample_neighbor_moves
+
+    spec = spec_fn()
+    f = traffic_matrix(spec, "BFS")
+    rng = np.random.default_rng(rows)
+    if tables:
+        moves = sample_neighbor_moves(spec, random_design(spec, rng), rng,
+                                      rows // 2, rows - rows // 2)
+        return spec, f, lambda ev: (ev.batch_moves(moves), {})
+    designs = [spec.mesh_design()] + [random_design(spec, rng)
+                                      for _ in range(rows - 1)]
+    return spec, f, lambda ev: ev.batch_aux(designs)
+
+
+@pytest.mark.parametrize("spec_fn,rows,tables", [
+    (spec_64, 32, False), (spec_64, 48, False), (spec_36, 192, False),
+    (spec_large, 8, False), (spec_large, 8, True)])
+def test_replayed_rows_are_the_eager_rows_bit_for_bit(dev, spec_fn, rows,
+                                                      tables):
+    """A chunk shape's first call runs eagerly, its second captures and
+    replays, its third replays: each gives the rows (and auxiliary
+    outputs) of the eager pass, bit for bit."""
+    spec, f, call = _eval_case(spec_fn, rows, tables)
+    delta = "on" if tables else "off"
+    want, want_aux = call(_eager(Evaluator(spec, f, device=dev,
+                                           delta=delta)))
+    ev = Evaluator(spec, f, device=dev, delta=delta)
+    assert ev.max_batch >= rows
+    seen = []
+    for _ in range(3):
+        (got, aux), counts = _graph_counts(lambda: call(ev))
+        seen.append(counts)
+        assert np.array_equal(got, want)
+        for k in want_aux:
+            assert aux[k].dtype == want_aux[k].dtype
+            assert np.array_equal(aux[k], want_aux[k])
+    # Where an earlier test saw the shape, the sequence starts later.
+    stages = [{"eager": 1}, {"eager": 1, "capture": 1}] + [{"replay": 1}] * 3
+    assert any(seen == stages[i:i + 3] for i in range(3)), seen
+
+
+def test_another_traffic_matrix_gets_its_own_rows_from_the_same_graph(dev):
+    spec = spec_64()
+    rng = np.random.default_rng(5)
+    designs = [random_design(spec, rng) for _ in range(24)]
+    fa, fb = traffic_matrix(spec, "BFS"), traffic_matrix(spec, "KNN")
+    want_a = _eager(Evaluator(spec, fa, device=dev)).batch(designs)
+    want_b = _eager(Evaluator(spec, fb, device=dev)).batch(designs)
+    assert not np.array_equal(want_a, want_b)
+    ea, eb = Evaluator(spec, fa, device=dev), Evaluator(spec, fb, device=dev)
+    for _ in range(2):
+        ea.batch(designs)
+    for ev, want in ((eb, want_b), (ea, want_a), (eb, want_b)):
+        got, counts = _graph_counts(lambda: ev.batch(designs))
+        assert counts == {"replay": 1} and np.array_equal(got, want)
+
+
+def test_two_threads_evaluating_at_once_stay_right(dev):
+    """Two threads, each with its own evaluator, traffic and chunk shapes,
+    capture and replay at once; every call gives its eager rows."""
+    import concurrent.futures as cf
+
+    spec = spec_64()
+    rng = np.random.default_rng(6)
+    jobs = []
+    for app, rows in (("BFS", 16), ("KNN", 20)):
+        f = traffic_matrix(spec, app)
+        designs = [random_design(spec, rng) for _ in range(rows)]
+        jobs.append((f, designs,
+                     _eager(Evaluator(spec, f, device=dev)).batch(designs)))
+    start = threading.Barrier(2)
+
+    def work(job):
+        f, designs, want = job
+        ev = Evaluator(spec, f, device=dev)
+        start.wait()
+        return all(np.array_equal(ev.batch(designs), want)
+                   for _ in range(20))
+
+    with cf.ThreadPoolExecutor(2) as pool:
+        assert list(pool.map(work, jobs)) == [True, True]
+
+
+def test_a_replayed_call_counts_the_eager_calls_launches(dev):
+    """K1 and K4 launches, and the work a work log records, are those of
+    an eager call, whether the call ran eagerly, captured or replayed."""
+    spec = spec_64()
+    rng = np.random.default_rng(8)
+    designs = [random_design(spec, rng) for _ in range(40)]
+    counts = []
+    for ev in [_eager(Evaluator(spec, traffic_matrix(spec, "BFS"),
+                                device=dev))] + \
+            [Evaluator(spec, traffic_matrix(spec, "BFS"), device=dev)] * 3:
+        before, work = ops.launches(), []
+        with ops.work_log(work):
+            ev.batch(designs)
+        after = ops.launches()
+        counts.append(({k: after[k] - before[k] for k in after},
+                       [(w.kernel, w.flops, w.bytes) for w in work]))
+    assert counts[0][0]["minplus"] == counts[0][0]["walk"] == 1
+    assert counts[1:] == [counts[0]] * 3
+
+
+def test_replayed_kernels_reach_the_trace_under_their_names(dev):
+    """K1 and K4 replayed from a captured graph appear on the profiler's
+    device timeline under their own names, once a replay each: the
+    benchmark's rooflines read kernel time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = spec_64()
+    rng = np.random.default_rng(9)
+    designs = [random_design(spec, rng) for _ in range(44)]
+    ev = Evaluator(spec, traffic_matrix(spec, "BFS"), device=dev)
+    for _ in range(2):
+        ev.batch(designs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (_, counts) = _graph_counts(lambda: [ev.batch(designs)
+                                             for _ in range(3)])
+        torch.cuda.synchronize()
+    assert counts == {"replay": 3}
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("apsp_kernel" in n for n in names) == 3
+    assert sum("walk_tree_kernel" in n or "walk_util_kernel" in n
+               for n in names) == 2 * 3
 
 def _meta_case(dev):
     from repro_torch.core.fused import MetaScorer
